@@ -3,30 +3,44 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``nlpartsol_tpu_torch/csrc`` and drives the
-port's main path — the 2D explicit LME step on the fused kernels — on the
-card.  Each phase prints one JSON line; any failure ends the run with a
-non-zero exit code.  Without a CUDA device the script fails at once.
+Builds the CUDA kernels from ``nlpartsol_tpu_torch/csrc`` (one ``nvcc`` per
+source, all started together) and drives the port's two paths — the 2D and
+the 3D explicit LME step on the fused kernels — on the card.  Each phase
+prints one JSON line; any failure ends the run with a non-zero exit code.
+Without a CUDA device the script fails at once.
 
-Phases:
+Phases (each 2D phase has a 3D twin with the suffix ``3d``):
   device     card, nvidia-smi name and power limit, torch and CUDA versions
   build      nvcc build + load of the kernels
   kernels    every kernel variant against its plain PyTorch version on a
-             128² grid (random positions and fields from a numpy seed)
-  main_path  512² nodes, 262,144 particles, capacity-6 box of 260² cells,
-             LME γ=3, Neo-Hookean, k=16 local rebin: 16 warm-up steps, 32
-             timed steps through ``to_slot_layout`` + ``run``
-  parity     the same 16 steps through the port's windowed engine on the
-             card, matched by pid: rel_dx < 1e-3, rel_dv < 1e-2
+             small grid (random positions and fields from a numpy seed):
+             2D 128², 3D 32³ (``kernels3d``), margins 0 and 1, valid bounds
+  main_path  the JAX package's benchmark problem through ``to_slot_layout``
+             + ``run``, with launch counts: 2D (bench.py) 512² nodes, 262,144
+             particles, capacity-6 box of 260² cells, k=16 local rebin, 16
+             warm-up + 32 timed steps; 3D (scripts/bench3d.py,
+             ``main_path3d``) 96³ nodes, 110,592 particles, capacity-2 box of
+             52³ cells, per-step local rebin, 4 + 16 steps; LME γ=3,
+             Neo-Hookean
+  parity     the same steps from the same state through the fused kernels
+             and the port's windowed engine on the card (2D 16, 3D 8),
+             matched by pid: rel_dx < 1e-3, rel_dv < 1e-2
   roofline   each kernel at the main path's shapes against its plain
              version: time, plain time, bound
-  large      (if time allows) the fused path alone at 2048² nodes and
+  probes     the lane-roll probes: a roll sum checked exactly against
+             torch.roll, and timed beside its multiply-add twin at 4 shapes
+  large      (if time allows) the fused path alone at the bigger size: 3D
+             160³ nodes / 512,000 particles (``large3d``), 2D 2048² nodes /
              4,194,304 particles
-  profile    (only when asked: ``--phases main_path,profile``) where one
-             16-step period of the main path spends its time: plain and
-             re-bin step times, device-busy share, kernels per step
+  profile    (only when asked: ``--phases main_path,profile`` or
+             ``main_path3d,profile3d``) where the main path's steps spend
+             their time: plain and re-bin step times, device-busy share,
+             kernels per step
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line ``{"kernels": [...]}`` lists every kernel with its launches on
+its path (counts set to 0 just before the path's timed run and read just
+after), error against its plain version, times and bound; the line after it
+is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -116,48 +130,88 @@ def phase_device():
     return kind, smi
 
 
+SOURCES = ("lme_transfer2d", "lme_transfer3d", "roll_probe")
+
+
 def phase_build():
-    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+    from nlpartsol_tpu_torch.ops import cuda_build, fused_transfer as ft, roll_probe
 
     t0 = time.perf_counter()
-    ft._library()
-    say(phase="build", seconds=time.perf_counter() - t0, sources=["lme_transfer2d.cu"])
+    cuda_build.build_all(SOURCES)  # one nvcc per source, all at once
+    ft._library(2), ft._library(3), roll_probe._library()
+    say(phase="build", seconds=time.perf_counter() - t0, sources=[s + ".cu" for s in SOURCES])
 
 
-def _slot_problem(seed, n_side, lo_cell, n_cell, capacity, per_cell, drift, device):
-    """Random particles in a box of ``n_cell``² cells starting at cell
-    ``lo_cell``, binned to slots, then moved by up to ``drift`` cells."""
+def _slot_problem(seed, dim, n_side, lo_cell, n_cell, capacity, per_cell, drift, device):
+    """Random particles in a box of ``n_cell``^dim cells starting at cell
+    ``lo_cell``, binned to slots (overflow dropped), then moved by up to
+    ``drift`` cells."""
     from nlpartsol_tpu_torch.formulations.explicit import to_slot_layout
     from nlpartsol_tpu_torch.ops import windowed
     from nlpartsol_tpu_torch.types import Grid, make_particles
 
     rng = np.random.default_rng(seed)
     h = 1.0 / (n_side - 1)
-    grid = Grid(dims=(n_side, n_side), spacing=h, origin=(0.0, 0.0))
-    n = per_cell * n_cell * n_cell
-    x = ((lo_cell + 1) + (n_cell - 2) * rng.random((n, 2))) * h
+    grid = Grid(dims=(n_side,) * dim, spacing=h, origin=(0.0,) * dim)
+    n = per_cell * n_cell ** dim
+    x = ((lo_cell + 1) + (n_cell - 2) * rng.random((n, dim))) * h
     p = make_particles(
         x.astype(np.float32),
         mass=rng.uniform(0.5, 2.0, n).astype(np.float32),
-        vol0=np.full(n, h * h / per_cell, np.float32),
+        vol0=np.full(n, h ** dim / per_cell, np.float32),
         device=device,
     )
-    box = windowed.ActiveBox(offset=(lo_cell,) * 2, cdims=(n_cell,) * 2, capacity=capacity)
+    box = windowed.ActiveBox(offset=(lo_cell,) * dim, cdims=(n_cell,) * dim,
+                             capacity=capacity)
     p = to_slot_layout(p, grid, box, allow_lost=True)
     if drift:
         dx = torch.as_tensor(
-            drift * h * (2.0 * rng.random((p.count, 2)) - 1.0), dtype=torch.float32,
+            drift * h * (2.0 * rng.random((p.count, dim)) - 1.0), dtype=torch.float32,
             device=device)
         p = p.replace(x=p.x + dx)
     return rng, grid, box, p
 
 
-def phase_kernels(device):
+# The kernel variants of phases ``kernels`` (2D: 128² grid, 100² cells ×
+# capacity 6, 3 particles a cell) and ``kernels3d`` (32³ grid, 24³ cells ×
+# capacity 2, 1 particle a cell): scatter cases (label, margin, G, gnorm,
+# valid bounds, seed) and gather cases (label, margin, N, gradient, seed).
+# Scatters carry cN = d+1 channels (mass, mass·velocity), gathers d.
+KERNEL_CASES = {
+    2: dict(problem=(128, 14, 100, 6, 3), grid="128x128", box="100x100 cells x capacity 6",
+            scatter=[("solve,cN=3,margin=0", 0, False, False, False, 1),
+                     ("solve,cN=3,margin=1", 1, False, False, False, 2),
+                     ("solve,cN=3,G,margin=1", 1, True, False, False, 3),
+                     ("solve,cN=3,gnorm,margin=1", 1, False, True, False, 4),
+                     ("solve,cN=3,G,margin=0,valid_lo/hi", 0, True, False, True, 5)],
+            gather=[("cN=2+grad,margin=1", 1, True, True, 6),
+                    ("cN=2,margin=1", 1, True, False, 7)]),
+    3: dict(problem=(32, 4, 24, 2, 1), grid="32x32x32", box="24^3 cells x capacity 2",
+            scatter=[("solve,cN=4,margin=0", 0, False, False, False, 11),
+                     ("solve,cN=4,margin=1", 1, False, False, False, 12),
+                     ("solve,cN=4,G,margin=1", 1, True, False, False, 13),
+                     ("solve,cN=4,gnorm,margin=1", 1, False, True, False, 14),
+                     ("solve,cN=4,G,margin=0,valid_lo/hi", 0, True, False, True, 15)],
+            gather=[("cN=3+grad,margin=1", 1, True, True, 16),
+                    ("cN=3,margin=1", 1, True, False, 17),
+                    ("grad,margin=0", 0, False, True, 18),
+                    ("cN=3+grad,margin=0", 0, True, True, 19)]),
+}
+
+
+def phase_kernels(device, dim):
+    """Every variant of the ``dim``-D kernels against its plain version:
+    scatter solve / G / gnorm, gather N / grad, margins 0 and 1, and one
+    case with valid node bounds."""
     from nlpartsol_tpu_torch.ops import fused_transfer as ft
     from nlpartsol_tpu_torch.shapefun import lme
 
     params = lme.LMEParams(gamma=3.0)
+    spec = KERNEL_CASES[dim]
     cases = []
+
+    def problem(seed, margin):
+        return _slot_problem(seed, dim, *spec["problem"], 0.9 * margin, device)
 
     def slot_inputs(p, box):
         C, nc = box.capacity, box.n_cells
@@ -168,29 +222,32 @@ def phase_kernels(device):
     def rand(rng, *shape):
         return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=device)
 
-    def scatter_case(label, margin, has_G, gnorm, bounds=False, seed=0):
-        rng, grid, box, p = _slot_problem(seed, 128, 14, 100, 6, 3, 0.9 * margin, device)
+    def scatter_case(label, margin, has_G, gnorm, bounds, seed):
+        rng, grid, box, p = problem(seed, margin)
         if bounds:
             # valid node planes end where the particles end (they sit one
-            # cell inside the box), cutting 2-3 planes out of every edge
+            # cell inside the box), cutting planes out of every edge
             # particle's window; axis 1 is cut one plane further out
             lo, hi = box.offset[0] + 1, box.offset[0] + box.cdims[0] - 1
-            grid = grid.replace(valid_lo=(lo, lo - 1), valid_hi=(hi, hi + 1))
+            rest = (dim - 2)
+            grid = grid.replace(valid_lo=(lo, lo - 1) + (lo,) * rest,
+                                valid_hi=(hi, hi + 1) + (hi,) * rest)
         C, nc = box.capacity, box.n_cells
         x_t, lam_t, act_t = slot_inputs(p, box)
-        vel = rand(rng, p.count, 2)
+        vel = rand(rng, p.count, dim)
         fN = ft.to_channel_leading(
             torch.cat([p.mass[:, None], p.mass[:, None] * vel], dim=1), C, nc)
-        G_t = ft.to_channel_leading(rand(rng, p.count, 4), C, nc) if has_G else None
+        G_t = ft.to_channel_leading(rand(rng, p.count, dim * dim), C, nc) if has_G else None
         args = (grid, box, params, x_t, lam_t, act_t, fN)
         kw = dict(G_t=G_t, solve=True, margin=margin, gnorm=gnorm)
         nodes, lam, nnz = ft.fused_scatter(*args, **kw)
         torch.cuda.synchronize()
         r_nodes, r_lam, r_nnz = ft._scatter_plain(*args, G_t, True, margin, gnorm)
-        out = dict(kernel="lme_scatter2d", case=label)
-        out["N"] = compare(label + ":N", nodes[:, :3], r_nodes[:, :3], **TOL_N)
+        cN = dim + 1
+        out = dict(kernel=f"lme_scatter{dim}d", case=label)
+        out["N"] = compare(label + ":N", nodes[:, :cN], r_nodes[:, :cN], **TOL_N)
         if has_G or gnorm:
-            out["grad"] = compare(label + ":grad", nodes[:, 3:], r_nodes[:, 3:], **TOL_GRAD)
+            out["grad"] = compare(label + ":grad", nodes[:, cN:], r_nodes[:, cN:], **TOL_GRAD)
         act = p.active
         out["lam"] = compare(
             label + ":lam", ft.from_channel_leading(lam)[act],
@@ -202,66 +259,82 @@ def phase_kernels(device):
         out["plain_ms"] = cuda_ms(lambda: ft._scatter_plain(*args, G_t, True, margin, gnorm), 2)
         cases.append(out)
 
-    def gather_case(label, with_grad, seed):
-        margin = 1
-        rng, grid, box, p = _slot_problem(seed, 128, 14, 100, 6, 3, 0.9 * margin, device)
+    def gather_case(label, margin, with_N, with_grad, seed):
+        rng, grid, box, p = problem(seed, margin)
         C, nc = box.capacity, box.n_cells
         x_t, lam_t, act_t = slot_inputs(p, box)
         dummy = ft.to_channel_leading(p.mass, C, nc)
         # gathers run at the λ the step's scatter solved
         _, lam_t, _ = ft._scatter_plain(grid, box, params, x_t, lam_t, act_t, dummy,
                                         None, True, margin, False)
-        field = rand(rng, grid.n_nodes, 2)
+        field = rand(rng, grid.n_nodes, dim)
         args = (grid, box, params, x_t, lam_t, act_t)
-        kw = dict(gN=field, g_grad=field if with_grad else None, margin=margin)
-        outN, grad = ft.fused_gather(*args, **kw)
+        kw = dict(gN=field if with_N else None, g_grad=field if with_grad else None,
+                  margin=margin)
+        got = ft.fused_gather(*args, **kw)
         torch.cuda.synchronize()
-        r_N, r_grad = ft._gather_plain(*args, field, kw["g_grad"], margin)
-        out = dict(kernel="lme_gather2d", case=label)
-        out["N"] = compare(label + ":N", outN, r_N, **TOL_N)
-        if with_grad:
-            out["grad"] = compare(label + ":grad", grad, r_grad, **TOL_GRAD)
-        elif grad is not None:
-            raise PhaseError(f"{label}: unexpected gradient output")
+        ref = ft._gather_plain(*args, kw["gN"], kw["g_grad"], margin)
+        out = dict(kernel=f"lme_gather{dim}d", case=label)
         inactive = ~p.active
-        if float(outN[inactive].abs().max()) != 0.0:
-            raise PhaseError(f"{label}: inactive slots not zero")
+        for key, i, wanted, tol in (("N", 0, with_N, TOL_N), ("grad", 1, with_grad, TOL_GRAD)):
+            if not wanted:
+                if got[i] is not None:
+                    raise PhaseError(f"{label}: unexpected {key} output")
+                continue
+            out[key] = compare(f"{label}:{key}", got[i], ref[i], **tol)
+            if float(got[i][inactive].abs().max()) != 0.0:
+                raise PhaseError(f"{label}: inactive slots not zero")
         out["ms"] = cuda_ms(lambda: ft.fused_gather(*args, **kw), 5)
-        out["plain_ms"] = cuda_ms(lambda: ft._gather_plain(*args, field, kw["g_grad"], margin), 2)
+        out["plain_ms"] = cuda_ms(
+            lambda: ft._gather_plain(*args, kw["gN"], kw["g_grad"], margin), 2)
         cases.append(out)
 
-    scatter_case("solve,cN=3,margin=0", 0, False, False, seed=1)
-    scatter_case("solve,cN=3,margin=1", 1, False, False, seed=2)
-    scatter_case("solve,cN=3,G,margin=1", 1, True, False, seed=3)
-    scatter_case("solve,cN=3,gnorm,margin=1", 1, False, True, seed=4)
-    scatter_case("solve,cN=3,G,margin=0,valid_lo/hi", 0, True, False,
-                 bounds=True, seed=5)
-    gather_case("cN=2+grad,margin=1", True, seed=6)
-    gather_case("cN=2,margin=1", False, seed=7)
-    say(phase="kernels", grid="128x128", box="100x100 cells x capacity 6", cases=cases)
+    for case in spec["scatter"]:
+        scatter_case(*case)
+    for case in spec["gather"]:
+        gather_case(*case)
+    say(phase="kernels" if dim == 2 else "kernels3d", grid=spec["grid"], box=spec["box"],
+        cases=cases)
 
 
-def build_problem(n_side, device, ppc=2, seed=0):
-    """The benchmark problem of the JAX package's bench.py, rebuilt in numpy:
-    particles 2×2 per cell over the central half, small random velocities."""
+# The JAX package's benchmark problems (2D: bench.py; 3D: scripts/bench3d.py),
+# rebuilt in numpy at their widths: particles per cell and axis, slot
+# capacity, re-bin period, and the depth chip_smoke.py runs them to (main
+# path warm-up and timed steps, parity steps).  ``large`` is each one's
+# optional bigger size.
+PROBLEMS = {
+    2: dict(n_side=512, ppc=2, capacity=6, rebin_every=16, warm=16, steps=32,
+            parity_steps=16, large=dict(n_side=2048, warm=16, steps=16)),
+    3: dict(n_side=96, ppc=1, capacity=2, rebin_every=1, warm=4, steps=16,
+            parity_steps=8, large=dict(n_side=160, warm=4, steps=8)),
+}
+
+
+def _suffix(dim):
+    return "" if dim == 2 else "3d"
+
+
+def build_problem(dim, n_side, device, seed=0):
+    """Particles ppc^dim per cell over the central half of an ``n_side``^dim
+    grid, small random velocities from numpy ``seed``; the box two cells
+    wider than the particles on every side."""
     from nlpartsol_tpu_torch.formulations.explicit import ExplicitConfig
     from nlpartsol_tpu_torch.models import materials as M
     from nlpartsol_tpu_torch.ops import windowed
     from nlpartsol_tpu_torch.shapefun import lme
     from nlpartsol_tpu_torch.types import Grid, make_particles
 
+    spec = PROBLEMS[dim]
+    ppc = spec["ppc"]
     h = 1.0 / (n_side - 1)
-    grid = Grid(dims=(n_side, n_side), spacing=h, origin=(0.0, 0.0))
+    grid = Grid(dims=(n_side,) * dim, spacing=h, origin=(0.0,) * dim)
     lo_cell, hi_cell = n_side // 4, 3 * n_side // 4
     ncell = hi_cell - lo_cell
-    i, j, a, b = np.meshgrid(
-        np.arange(ncell), np.arange(ncell), np.arange(ppc), np.arange(ppc), indexing="ij"
-    )
+    idx = np.meshgrid(*[np.arange(ncell)] * dim, *[np.arange(ppc)] * dim, indexing="ij")
     x = np.stack(
-        [(lo_cell + i + (a + 0.5) / ppc) * h, (lo_cell + j + (b + 0.5) / ppc) * h],
-        axis=-1,
-    ).reshape(-1, 2).astype(np.float32)
-    vol = (h / ppc) ** 2
+        [(lo_cell + idx[a] + (idx[dim + a] + 0.5) / ppc) * h for a in range(dim)], axis=-1,
+    ).reshape(-1, dim).astype(np.float32)
+    vol = (h / ppc) ** dim
     rho = 1000.0
     rng = np.random.default_rng(seed)
     p = make_particles(
@@ -275,7 +348,8 @@ def build_problem(n_side, device, ppc=2, seed=0):
         [M.material(kind="Neo-Hookean-Wriggers", E=1e7, nu=0.3, rho0=rho)], device=device
     )
     box = windowed.ActiveBox(
-        offset=(n_side // 4 - 2,) * 2, cdims=(n_side // 2 + 4,) * 2, capacity=6
+        offset=(n_side // 4 - 2,) * dim, cdims=(n_side // 2 + 4,) * dim,
+        capacity=spec["capacity"],
     )
     cel = np.sqrt(1e7 / rho)
     cfg = ExplicitConfig(
@@ -286,7 +360,7 @@ def build_problem(n_side, device, ppc=2, seed=0):
         transfer="fused",
         active_box=box,
         rebin_mode="local",
-        rebin_every=16,
+        rebin_every=spec["rebin_every"],
     )
     return grid, p, mats, cfg, h
 
@@ -315,40 +389,42 @@ def _check_state(label, p, diag):
     return lost
 
 
-def phase_main_path(device, n_side=512, warm=16, steps=32):
+def phase_main_path(device, dim):
+    """The ``dim``-D benchmark problem through ``to_slot_layout`` + ``run``:
+    warm-up steps, then timed steps with the launch counts set to 0 just
+    before and read just after (two scatters and two gathers a step)."""
     from nlpartsol_tpu_torch.formulations.explicit import run
 
-    grid, p0, mats, cfg, h = build_problem(n_side, device)
+    spec = PROBLEMS[dim]
+    warm, steps = spec["warm"], spec["steps"]
+    label = "main_path" + _suffix(dim)
+    grid, p0, mats, cfg, h = build_problem(dim, spec["n_side"], device)
     p1, _ = run(p0, grid, mats, cfg, warm)
+    torch.cuda.reset_peak_memory_stats()
     p2, diag, seconds, counts = _timed_run(p1, grid, mats, cfg, steps)
-    lost = _check_state("main_path", p2, diag)
+    lost = _check_state(label, p2, diag)
     n_active = int(p2.active.sum())
     if n_active != p0.count:
-        raise PhaseError(f"main_path: {n_active} active particles of {p0.count}")
+        raise PhaseError(f"{label}: {n_active} active particles of {p0.count}")
     total_nnz = int(diag["nnz"].long().sum())
-    want = {"lme_scatter2d:solve": steps, "lme_scatter2d:G": steps,
-            "lme_gather2d:N+grad": steps, "lme_gather2d:N": steps}
+    want = {f"lme_scatter{dim}d:solve": steps, f"lme_scatter{dim}d:G": steps,
+            f"lme_gather{dim}d:N+grad": steps, f"lme_gather{dim}d:N": steps}
     if counts != want:
-        raise PhaseError(f"main_path: launch counts {counts}, expected {want}")
-    say(phase="main_path", grid=f"{n_side}x{n_side}", particles=p0.count, slots=cfg.active_box.n_slots,
-        warmup_steps=warm, steps=steps, ms_per_step=1e3 * seconds / steps,
-        total_nnz=total_nnz, nnz_per_step=total_nnz / steps, nnz_per_s=total_nnz / seconds,
-        lost=lost, launches=counts, finite=True,
+        raise PhaseError(f"{label}: launch counts {counts}, expected {want}")
+    say(phase=label, grid="x".join(map(str, grid.dims)), particles=p0.count,
+        slots=cfg.active_box.n_slots, warmup_steps=warm, steps=steps,
+        ms_per_step=1e3 * seconds / steps, total_nnz=total_nnz,
+        nnz_per_step=total_nnz / steps, nnz_per_particle=total_nnz / steps / p0.count,
+        nnz_per_s=total_nnz / seconds, lost=lost, launches=counts, finite=True,
+        peak_device_bytes=torch.cuda.max_memory_allocated(),
         kinetic_energy=float(diag["kinetic_energy"][-1]),
         strain_energy=float(diag["strain_energy"][-1]))
-    return grid, p0, p1, mats, cfg, h, counts
+    return grid, p0, p2, mats, cfg, h, counts
 
 
-def phase_parity(grid, p0, p1, mats, cfg, h, steps=16):
-    from nlpartsol_tpu_torch.formulations.explicit import run
-
-    cfg_w = cfg.replace(transfer="windowed", rebin_every=1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pw, diag_w = run(p0, grid, mats, cfg_w, steps)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    _check_state("parity", pw, diag_w)
+def _parity(pf, pw, h, label):
+    """Largest position difference over h and velocity difference over the
+    largest speed, between two runs matched by pid over active particles."""
 
     def by_pid(pp):
         act = pp.active
@@ -356,30 +432,70 @@ def phase_parity(grid, p0, p1, mats, cfg, h, steps=16):
         o = torch.argsort(pid)
         return pp.x[act][o], pp.v[act][o], pid[o]
 
-    xf, vf, pid_f = by_pid(p1)
+    xf, vf, pid_f = by_pid(pf)
     xw, vw, pid_w = by_pid(pw)
     if pid_f.shape != pid_w.shape or not bool((pid_f == pid_w).all()):
-        raise PhaseError("parity: particle sets differ")
+        raise PhaseError(f"{label}: particle sets differ")
     rel_dx = float((xf - xw).abs().max()) / h
     v_scale = max(float(vw.abs().max()), 1e-12)
-    rel_dv = float((vf - vw).abs().max()) / v_scale
+    return rel_dx, float((vf - vw).abs().max()) / v_scale
+
+
+def phase_parity(grid, p0, mats, cfg, h):
+    """The same steps from the same state through the fused kernels and the
+    port's windowed engine (full window, plain tensor code, binning every
+    step), matched by pid."""
+    from nlpartsol_tpu_torch.formulations.explicit import run
+
+    dim = grid.dim
+    label = "parity" + _suffix(dim)
+    steps = PROBLEMS[dim]["parity_steps"]
+    pf, diag_f = run(p0, grid, mats, cfg, steps)
+    _check_state(label + ":fused", pf, diag_f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pw, diag_w = run(p0, grid, mats, cfg.replace(transfer="windowed", rebin_every=1), steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _check_state(label + ":windowed", pw, diag_w)
+    rel_dx, rel_dv = _parity(pf, pw, h, label)
     ok = rel_dx < 1e-3 and rel_dv < 1e-2
-    say(phase="parity", steps=steps, rel_dx=rel_dx, rel_dv=rel_dv,
-        limit_dx=1e-3, limit_dv=1e-2, windowed_ms_per_step=1e3 * seconds / steps, ok=ok)
+    say(phase=label, steps=steps, rel_dx=rel_dx, rel_dv=rel_dv,
+        limit_dx=1e-3, limit_dv=1e-2, nnz_fused=int(diag_f["nnz"].long().sum()),
+        nnz_windowed=int(diag_w["nnz"].long().sum()),
+        windowed_ms_per_step=1e3 * seconds / steps,
+        windowed_peak_device_bytes=torch.cuda.max_memory_allocated(), ok=ok)
     if not ok:
-        raise PhaseError(f"parity: rel_dx {rel_dx}, rel_dv {rel_dv}")
+        raise PhaseError(f"{label}: rel_dx {rel_dx}, rel_dv {rel_dv}")
 
 
-# Operations the function needs on this run's inputs, whatever the kernel
-# computes again (it re-tests the window and re-evaluates f and exp in every
+# Operations the functions need on this run's inputs, whatever the kernels
+# compute again (they re-test the window and re-evaluate f and exp in every
 # sweep; none of that is charged twice).  An exp and a division count as one
-# each.  Once per active slot and window offset: the edge test (node position,
-# r, r², bounds) is 11.  Once per valid edge and evaluation of the basis at a
-# new λ (each Newton iteration that ran, or the one evaluation at fixed λ): f
-# is 5, exp 1, the six moments 14 (Z alone 1).  Once per valid edge: a shape
-# value N 2, a gradient 10, one N-weighted channel 2 (multiply + add), the G
-# product 8, a gradient-weighted gather 8.
-OPS_TEST, OPS_F, OPS_MOM, OPS_N, OPS_DN, OPS_CH, OPS_G = 11, 5, 14, 2, 10, 2, 8
+# each.  Once per active slot and window offset, the edge test: 2D 11; 3D 15
+# (node position 3 mul + 3 add, r 3, r² 5, the radius compare 1).  Once per
+# valid edge and evaluation of the basis at a new λ (each Newton iteration
+# that ran, or the one evaluation at fixed λ): f = −β·r² + λ·r (2D 5, 3D 7),
+# exp 1, the moments (2D six, 14; 3D ten, 19: S0 1, e·l 3 and S1 3, S2 6 mul
+# + 6 add; Z alone 1).  Once per valid edge: a shape value N 2, a gradient
+# (2D 10; 3D 21: l − r 3, J⁻¹·a 15, ×(−N) 3), one N-weighted channel 2
+# (multiply + add), the G product with its adds (2D 8, 3D 18), a
+# gradient-weighted gather (2D 8, 3D 18: 9 mul + 9 add).
+OPS = {
+    2: dict(test=11, f=5, mom=14, n=2, dn=10, ch=2, g=8, grad=8),
+    3: dict(test=15, f=7, mom=19, n=2, dn=21, ch=2, g=18, grad=18),
+}
+# the TPU kernels each CUDA kernel replaces: (file:line of the pallas_call,
+# and of the other layout's call for 3D)
+REPLACES = {
+    "lme_scatter2d": ("nlpartsol_tpu/ops/pallas_transfer.py:624", None),
+    "lme_gather2d": ("nlpartsol_tpu/ops/pallas_transfer.py:815", None),
+    "lme_scatter3d": ("nlpartsol_tpu/ops/pallas_transfer3d.py:1176",
+                      "nlpartsol_tpu/ops/pallas_transfer3d.py:741"),
+    "lme_gather3d": ("nlpartsol_tpu/ops/pallas_transfer3d.py:1427",
+                     "nlpartsol_tpu/ops/pallas_transfer3d.py:1038"),
+}
 
 
 def _bound(n_bytes, n_ops):
@@ -392,7 +508,10 @@ def phase_roofline(grid, p1, mats, cfg, counts):
     against its plain version: error, time, plain time, bound."""
     from nlpartsol_tpu_torch.ops import fused_transfer as ft
 
-    box, params, margin = cfg.active_box, cfg.lme_params, 1
+    d = grid.dim
+    ops_of = OPS[d]
+    box, params = cfg.active_box, cfg.lme_params
+    margin = 0 if cfg.rebin_every == 1 else 1
     C, nc, ns = box.capacity, box.n_cells, box.n_slots
     n_nodes = grid.n_nodes
     p = p1
@@ -402,115 +521,141 @@ def phase_roofline(grid, p1, mats, cfg, counts):
     act_t = ft.to_channel_leading(p.active.float(), C, nc)
     d_dis = dt * p.v + 0.5 * dt * dt * p.a
     fN = ft.to_channel_leading(torch.cat([p.mass[:, None], p.mass[:, None] * d_dis], 1), C, nc)
+    cN = d + 1
     base = (grid, box, params, x_t)
-    n_pairs = len(ft._geom(grid, params, margin).pairs)
+    n_offs = len(ft._geom(grid, params, margin).offsets)
     n_active = int(p.active.sum())
     n_idle = ns - n_active
     # bytes of one float32 channel over the active slots, the idle slots (the
     # function needs only ``active`` of an idle slot, and in the scatter its λ,
     # which passes through), all slots, and all nodes
     b_act, b_idle, b_all, b_nodes = 4 * n_active, 4 * n_idle, 4 * ns, 4 * n_nodes
-    tests = n_active * n_pairs * OPS_TEST
+    tests = n_active * n_offs * ops_of["test"]
+    per_eval = ops_of["f"] + 1 + ops_of["mom"]
     # 1 GiB: rewriting it keeps the card busy longer than the host needs to
     # queue the next launch, so the events bracket device time only
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=p.x.device)
     rows = []
+    scatter, gather = f"lme_scatter{d}d", f"lme_gather{d}d"
 
-    def row(name, replaces, fn_kernel, fn_plain, checks, n_bytes, n_ops):
+    def row(name, fn_kernel, fn_plain, checks, n_bytes, n_ops):
         got, ref = fn_kernel(), fn_plain()
         torch.cuda.synchronize()
         err = 0.0
         for label, pick, tol in checks:
             err = max(err, compare(f"{name}:{label}", pick(got), pick(ref), **tol)["max_abs"])
+        del ref
         bound_ms, bound_by = _bound(n_bytes, n_ops)
+        replaces, also = REPLACES[name.split(":")[0]]
         rows.append(dict(
-            name=name, route="cuda", source="nlpartsol_tpu_torch/csrc/lme_transfer2d.cu",
-            replaces=replaces, launches=counts[name], max_abs_err=err,
+            name=name, route="cuda",
+            source=f"nlpartsol_tpu_torch/csrc/lme_transfer{d}d.cu",
+            replaces=replaces, **({"also_replaces": also} if also else {}),
+            launches=counts[name], max_abs_err=err,
             ms=cuda_ms(fn_kernel, 10, flush), plain_ms=cuda_ms(fn_plain, 2, flush),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             bytes=n_bytes, operations=n_ops))
         return got
 
+    # per slot: x and λ in, λ out (d each), active 1
+    slot_io = 3 * d + 1
     # scatter #1: λ solve + mass and momentum increment
     _, _, cnt = ft.scatter_cuda(grid, box, params, x_t, lam_t, act_t, fN, solve=True,
                                 margin=margin)
     nnz, iters = (int(v) for v in cnt)
     # the last iteration's exponentials are those of the emitted basis
-    ops = (tests
-           + iters * (nnz / n_active) * (OPS_F + 1 + OPS_MOM)
-           + nnz * (OPS_N + 3 * OPS_CH))
+    ops = tests + iters * (nnz / n_active) * per_eval + nnz * (ops_of["n"] + cN * ops_of["ch"])
     nodes1, lam_new, _ = row(
-        "lme_scatter2d:solve", "nlpartsol_tpu/ops/pallas_transfer.py:624",
+        f"{scatter}:solve",
         lambda: ft.fused_scatter(*base, lam_t, act_t, fN, solve=True, margin=margin),
         lambda: ft._scatter_plain(*base, lam_t, act_t, fN, None, True, margin, False),
         [("nodes", lambda o: o[0], TOL_N)],
-        (8 + 2) * b_act + (3 + 2) * b_idle + 3 * b_nodes, ops)
+        (slot_io + cN) * b_act + (2 * d + 1) * b_idle + cN * b_nodes, ops)
     m_safe = torch.clamp(nodes1[:, 0], min=cfg.mass_tol)[:, None]
-    d_dis_nodes = nodes1[:, 1:3] / m_safe
+    d_dis_nodes = nodes1[:, 1:1 + d] / m_safe
 
     # scatter #2: internal forces Σ G·∇N at fixed λ (G = −V0·τ of this state)
-    G_t = ft.to_channel_leading((-p.vol0[:, None, None] * p.stress).reshape(-1, 4), C, nc)
+    G_t = ft.to_channel_leading((-p.vol0[:, None, None] * p.stress).reshape(-1, d * d), C, nc)
     dummy = ft.to_channel_leading(torch.zeros_like(p.mass), C, nc)
-    per_edge = OPS_F + 1 + OPS_MOM + OPS_N + OPS_DN + OPS_CH + OPS_G
+    per_edge = per_eval + ops_of["n"] + ops_of["dn"] + ops_of["ch"] + ops_of["g"]
     nodes2, _, _ = row(
-        "lme_scatter2d:G", "nlpartsol_tpu/ops/pallas_transfer.py:624",
+        f"{scatter}:G",
         lambda: ft.fused_scatter(*base, lam_new, act_t, dummy, G_t=G_t, solve=False,
                                  margin=margin),
         lambda: ft._scatter_plain(*base, lam_new, act_t, dummy, G_t, False, margin, False),
         [("forces", lambda o: o[0][:, 1:], TOL_GRAD)],
-        (10 + 2) * b_act + (3 + 2) * b_idle + 3 * b_nodes, tests + nnz * per_edge)
-    accel = (nodes2[:, 1:3] / m_safe).contiguous()
+        (slot_io + 1 + d * d) * b_act + (2 * d + 1) * b_idle + (1 + d) * b_nodes,
+        tests + nnz * per_edge)
+    accel = (nodes2[:, 1:1 + d] / m_safe).contiguous()
 
-    # gather #1: smoothed Δu and its gradient
-    per_edge = OPS_F + 1 + OPS_MOM + OPS_N + OPS_DN + 2 * OPS_CH + 8
-    row("lme_gather2d:N+grad", "nlpartsol_tpu/ops/pallas_transfer.py:815",
+    # gather #1: smoothed Δu and its gradient (per slot: x, λ, active in)
+    per_edge = per_eval + ops_of["n"] + ops_of["dn"] + d * ops_of["ch"] + ops_of["grad"]
+    row(f"{gather}:N+grad",
         lambda: ft.fused_gather(*base, lam_new, act_t, gN=d_dis_nodes, g_grad=d_dis_nodes,
                                 margin=margin),
         lambda: ft._gather_plain(*base, lam_new, act_t, d_dis_nodes, d_dis_nodes, margin),
         [("N", lambda o: o[0], TOL_N), ("grad", lambda o: o[1], TOL_GRAD)],
-        5 * b_act + b_idle + 2 * b_nodes + 6 * b_all, tests + nnz * per_edge)
+        (2 * d + 1) * b_act + b_idle + d * b_nodes + (d + d * d) * b_all,
+        tests + nnz * per_edge)
 
     # gather #2: accelerations
-    per_edge = OPS_F + 1 + 1 + OPS_N + 2 * OPS_CH
-    row("lme_gather2d:N", "nlpartsol_tpu/ops/pallas_transfer.py:815",
+    per_edge = ops_of["f"] + 1 + 1 + ops_of["n"] + d * ops_of["ch"]
+    row(f"{gather}:N",
         lambda: ft.fused_gather(*base, lam_new, act_t, gN=accel, margin=margin),
         lambda: ft._gather_plain(*base, lam_new, act_t, accel, None, margin),
         [("N", lambda o: o[0], TOL_N)],
-        5 * b_act + b_idle + 2 * b_nodes + 2 * b_all, tests + nnz * per_edge)
+        (2 * d + 1) * b_act + b_idle + d * b_nodes + d * b_all, tests + nnz * per_edge)
 
-    say(phase="roofline", slots=ns, active=n_active, window_offsets=n_pairs, nnz=nnz,
-        newton_iterations_per_active_slot=iters / n_active,
+    say(phase="roofline" + _suffix(d), slots=ns, active=n_active, window_offsets=n_offs,
+        nnz=nnz, newton_iterations_per_active_slot=iters / n_active,
         peaks=dict(f32_flops=PEAK_F32_FLOPS, bytes_per_s=PEAK_BYTES_PER_S))
     return rows
 
 
-def phase_profile(grid, p1, mats, cfg):
-    """One k-period of the main path (k−1 plain steps, one that re-bins):
-    host-clock step times, then a ``torch.profiler`` trace of one more such
-    period for device time by kernel.  The busy share is the traced period's
-    device time over the un-profiled period's host time."""
+def phase_profile(grid, p1, mats, cfg, label="profile"):
+    """Where a step's time goes.  With a re-bin period k > 1: one k-period
+    of the main path (k−1 plain steps, one that re-bins).  With k = 1 (the
+    3D path re-bins every step): 8 steps, each re-binning, after 4 steps
+    timed without the re-bin (their result is discarded).  Host-clock step
+    times, then a ``torch.profiler`` trace of one more such period for
+    device time by kernel.  The busy share is the traced period's device
+    time over the un-profiled period's host time."""
     from torch.profiler import ProfilerActivity, profile
 
     from nlpartsol_tpu_torch.formulations.explicit import explicit_step
 
     k = cfg.rebin_every
-    body = torch.zeros(2, dtype=p1.x.dtype, device=p1.x.device)
+    n = k if k > 1 else 8
+    body = torch.zeros(p1.dim, dtype=p1.x.dtype, device=p1.x.device)
 
-    def period(p, timed=None):
-        for i in range(k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            p, _ = explicit_step(p, grid, mats, cfg, body, rebin=i == k - 1)
-            torch.cuda.synchronize()
-            if timed is not None:
-                timed.append(1e3 * (time.perf_counter() - t0))
+    def step(p, i, timed=None, rebin=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, _ = explicit_step(p, grid, mats, cfg, body,
+                             rebin=(i == k - 1) if rebin is None else rebin)
+        torch.cuda.synchronize()
+        if timed is not None:
+            timed.append(1e3 * (time.perf_counter() - t0))
         return p
 
+    def period(p, timed=None):
+        for i in range(n):
+            p = step(p, i % k, timed)
+        return p
+
+    plain = []
+    if k == 1:
+        q = p1
+        for _ in range(4):
+            q = step(q, 0, plain, rebin=False)
+        del q
     times = []
     p = period(period(p1), times)
+    if k > 1:
+        plain, times = times[:-1], times[-1:]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(k):
-            p, _ = explicit_step(p, grid, mats, cfg, body, rebin=i == k - 1)
+        for i in range(n):
+            p, _ = explicit_step(p, grid, mats, cfg, body, rebin=i % k == k - 1)
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -521,36 +666,99 @@ def phase_profile(grid, p1, mats, cfg):
                if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
     total_us = sum(dev_us(e) for e in kernels)
     if total_us <= 0:
-        raise PhaseError("profile: torch.profiler recorded no device time")
+        raise PhaseError(f"{label}: torch.profiler recorded no device time")
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
-    say(phase="profile", steps=k,
-        plain_step_ms=float(np.median(times[:-1])), rebin_step_ms=times[-1],
-        device_ms_per_step=1e-3 * total_us / k,
-        device_busy_share=1e-3 * total_us / sum(times),
-        device_kernels_per_step=sum(e.count for e in kernels) / k,
-        top=[dict(name=e.key[:60], count=e.count, device_ms_per_step=1e-3 * dev_us(e) / k)
+    say(phase=label, steps=n,
+        plain_step_ms=float(np.median(plain)), rebin_step_ms=float(np.median(times)),
+        device_ms_per_step=1e-3 * total_us / n,
+        device_busy_share=1e-3 * total_us / (sum(plain) + sum(times) if k > 1 else sum(times)),
+        device_kernels_per_step=sum(e.count for e in kernels) / n,
+        top=[dict(name=e.key[:60], count=e.count, device_ms_per_step=1e-3 * dev_us(e) / n)
              for e in top])
 
 
-def phase_large(device, steps=16):
-    """The fused path alone at 2048² nodes / 4,194,304 particles.  No parity
-    leg at this size: the plain engine's edge tensors would take tens of GB."""
+def phase_probes(device, reps=20):
+    """The lane-roll probes (scripts/probe_roll.py, probe_roll2.py): P1 ten
+    rolls checked exactly against torch.roll summed in the same order; P2
+    and P3 160 rolls against 160 multiply-adds at four shapes.  Each kernel
+    is checked exactly against its plain version, then timed: the median of
+    ``reps`` launches with L2 flushed before each (launches counted from 0
+    over that run)."""
+    from nlpartsol_tpu_torch.ops import roll_probe as rp
+
+    rng = np.random.default_rng(0)
+    rows = []
+    # rewriting 1 GiB before each launch keeps the card busy while the host
+    # queues the launch, so the events bracket device time, not host latency
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=device)
+
+    def timed(fn):
+        rp.reset_launch_counts()
+        ms = cuda_ms(fn, reps, flush)
+        return ms, sum(rp.launch_counts.values())
+
+    def probe(name, replaces, x, fn, plain, n_ops):
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if err != 0.0:
+            raise PhaseError(f"probes:{name}: max error {err}, expected 0")
+        ms, launches = timed(fn)
+        plain_ms = cuda_ms(plain, 3, flush)
+        n_bytes = 2 * 4 * x.numel()
+        bound_ms, bound_by = _bound(n_bytes, n_ops * x.numel())
+        rows.append(dict(
+            name=name, route="cuda", source="nlpartsol_tpu_torch/csrc/roll_probe.cu",
+            replaces=replaces, launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            bytes=n_bytes, operations=n_ops * x.numel(), path="probes (no MPM path)"))
+
+    def arr(shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=device)
+
+    x = arr((8, 3456))
+    probe("roll_sum:P1 8x3456 10 shifts", "scripts/probe_roll.py:31", x,
+          lambda: rp.roll_sum(x, rp.P1_SHIFTS), lambda: rp.roll_sum_plain(x, rp.P1_SHIFTS),
+          len(rp.P1_SHIFTS))
+    for shape in [(8, 128), (8, 3456), (40, 3456), (16, 3456)]:
+        x = arr(shape)
+        tag = f"{shape[0]}x{shape[1]} 160"
+        roll_src = "scripts/probe_roll.py:51" if shape == (8, 3456) else "scripts/probe_roll2.py:29"
+        probe(f"roll_sum:{'P2/P3' if shape == (8, 3456) else 'P3'} {tag} shifts", roll_src, x,
+              lambda: rp.roll_sum(x, rp.P2_SHIFTS), lambda: rp.roll_sum_plain(x, rp.P2_SHIFTS),
+              160)
+        probe(f"mul_sum:P3 {tag} ops", "scripts/probe_roll2.py:29", x,
+              lambda: rp.mul_sum(x, 160), lambda: rp.mul_sum_plain(x, 160), 2 * 160)
+    say(phase="probes", reps=reps,
+        rows=[dict(name=r["name"], ms=r["ms"], plain_ms=r["plain_ms"]) for r in rows])
+    return rows
+
+
+def phase_large(device, dim):
+    """The fused path alone at the problem's bigger size (2D 2048² nodes /
+    4,194,304 particles; 3D 160³ / 512,000).  No parity leg at this size: the
+    plain engine's edge tensors would take tens of GB."""
     from nlpartsol_tpu_torch.formulations.explicit import run
 
-    grid, p0, mats, cfg, _ = build_problem(2048, device)
-    p1, _ = run(p0, grid, mats, cfg, steps)
+    spec = PROBLEMS[dim]["large"]
+    label = "large" + _suffix(dim)
+    grid, p0, mats, cfg, _ = build_problem(dim, spec["n_side"], device)
+    p1, _ = run(p0, grid, mats, cfg, spec["warm"])
     torch.cuda.reset_peak_memory_stats()
-    p2, diag, seconds, _ = _timed_run(p1, grid, mats, cfg, steps)
-    lost = _check_state("large", p2, diag)
+    p2, diag, seconds, _ = _timed_run(p1, grid, mats, cfg, spec["steps"])
+    lost = _check_state(label, p2, diag)
     total_nnz = int(diag["nnz"].long().sum())
-    say(phase="large", grid="2048x2048", particles=p0.count, slots=cfg.active_box.n_slots,
-        steps=steps, ms_per_step=1e3 * seconds / steps, nnz_per_s=total_nnz / seconds,
-        lost=lost, peak_device_bytes=torch.cuda.max_memory_allocated())
+    say(phase=label, grid="x".join(map(str, grid.dims)), particles=p0.count,
+        slots=cfg.active_box.n_slots, warmup_steps=spec["warm"], steps=spec["steps"],
+        ms_per_step=1e3 * seconds / spec["steps"], nnz_per_step=total_nnz / spec["steps"],
+        nnz_per_s=total_nnz / seconds, lost=lost,
+        peak_device_bytes=torch.cuda.max_memory_allocated())
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,main_path,parity,roofline,large",
+    ap.add_argument("--phases", default="kernels,main_path,parity,roofline,kernels3d,"
+                    "main_path3d,parity3d,roofline3d,probes,large3d,large",
                     help="comma-separated phases to run after device and build")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -566,21 +774,27 @@ def main():
     phase_build()
 
     rows = []
-    if "kernels" in phases:
-        phase_kernels(device)
-    if "main_path" in phases:
-        grid, p0, p1, mats, cfg, h, counts = phase_main_path(device)
-        if "profile" in phases:
-            phase_profile(grid, p1, mats, cfg)
-        if "parity" in phases:
-            phase_parity(grid, p0, p1, mats, cfg, h)
-        if "roofline" in phases:
-            rows = phase_roofline(grid, p1, mats, cfg, counts)
-        del p0, p1
-        torch.cuda.empty_cache()
-    # the 2048² leg is optional: only with most of the time limit still ahead
-    if "large" in phases and time.perf_counter() - T_START < 300.0:
-        phase_large(device)
+    for dim in (2, 3):
+        sfx = _suffix(dim)
+        if "kernels" + sfx in phases:
+            phase_kernels(device, dim)
+        if phases & {name + sfx for name in ("main_path", "profile", "parity", "roofline")}:
+            grid, p0, p1, mats, cfg, h, counts = phase_main_path(device, dim)
+            if "profile" + sfx in phases:
+                phase_profile(grid, p1, mats, cfg, label="profile" + sfx)
+            if "parity" + sfx in phases:
+                phase_parity(grid, p0, mats, cfg, h)
+            if "roofline" + sfx in phases:
+                rows += phase_roofline(grid, p1, mats, cfg, counts)
+            del p0, p1
+            torch.cuda.empty_cache()
+    if "probes" in phases:
+        rows += phase_probes(device)
+    # the large legs are optional: only with most of the time limit ahead
+    for dim, before_s in ((3, 420.0), (2, 480.0)):
+        if "large" + _suffix(dim) in phases and time.perf_counter() - T_START < before_s:
+            phase_large(device, dim)
+            torch.cuda.empty_cache()
 
     say(phase="done", seconds=time.perf_counter() - T_START)
     print(smi, flush=True)

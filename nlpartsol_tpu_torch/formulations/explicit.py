@@ -15,7 +15,10 @@ Counterpart of ``nlpartsol_tpu/formulations/explicit.py``:
 
 Transfers run through the slot-layout engines: 'windowed' (plain tensor
 code, ops/windowed.py — the reference of the kernels) or 'fused' (the CUDA
-kernels of ops/fused_transfer.py; the JAX package calls it 'pallas').
+kernels of ops/fused_transfer.py; the JAX package calls it 'pallas'), in 2D
+and in 3D.  The 3D step is the JAX package's without its TPU kernel-layout
+view cache (``make_views3``): the CUDA kernels read the slot arrays as they
+are.
 Plain functions: Particles × nodal inputs → Particles.  Diagnostics stay
 device tensors; nothing in a step waits on the host.
 
@@ -23,7 +26,7 @@ Not ported yet (each raises ``NotImplementedError`` naming its slice of
 ROADMAP.md): ``halo``/``axis_name``/``rebin_mode='none'`` (multi-device),
 ``damage`` (remaining models), shape functions other than ``lme``, schemes
 other than ``NPC-FS`` and ``transfer='scatter'/'binned'`` (other shape
-functions, engines and integrators), ``dim == 3`` (3D).
+functions, engines and integrators).
 """
 
 from __future__ import annotations
@@ -87,8 +90,8 @@ def _check_supported(cfg: ExplicitConfig, p: Particles):
     def later(what, where):
         return NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1, '{where}'")
 
-    if p.dim == 3:
-        raise later("dim == 3", "3D")
+    if p.dim not in (2, 3):
+        raise ValueError(f"explicit steps run in 2D and 3D, not {p.dim}D")
     if cfg.halo is not None or cfg.axis_name is not None:
         raise later("halo / axis_name sharding", "Multi-device")
     if cfg.rebin_mode == "none":
@@ -292,7 +295,7 @@ def _explicit_step_fused(
     traction_area: Optional[Tensor] = None,
     rebin: Optional[bool] = None,
 ):
-    """Fused-kernel variant of the explicit step (2D LME; the main path).
+    """Fused-kernel variant of the explicit step (LME, 2D or 3D).
     Physics identical to the windowed path; the particle↔grid transfers run
     through ops/fused_transfer.py so no (Ns, K, ·) edge tensor ever reaches
     device memory: two scatters and two gathers a step."""

@@ -50,28 +50,44 @@ def _paths(name: str):
     return src, os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 
+def build_all(names) -> list:
+    """Compile each ``csrc/<name>.cu`` whose up-to-date library is missing,
+    one ``nvcc`` per source, all started together; returns the libraries'
+    paths.  Extra ``nvcc`` flags (``-Xptxas -v`` to see registers and
+    spills) may be given in the environment variable ``NLPS_NVCC_FLAGS``;
+    the compiler's output is printed when there is any."""
+    extra = shlex.split(os.environ.get("NLPS_NVCC_FLAGS", ""))
+    libs, running = [], []
+    for name in names:
+        src, lib = _paths(name)
+        libs.append(lib)
+        if os.path.exists(lib):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [find_nvcc(), *NVCC_FLAGS, *extra, "-o", tmp, src]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((proc, cmd, tmp, lib))
+    failed = []
+    for proc, cmd, tmp, lib in running:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            failed.append(f"{' '.join(cmd)}\nexit code {proc.returncode}\n{out}")
+            continue
+        os.replace(tmp, lib)
+        if out.strip():
+            print(out.strip())
+    if failed:
+        raise RuntimeError("nvcc build failed:\n" + "\n".join(failed))
+    return libs
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its up-to-date library exists;
-    returns the library's path.  Extra ``nvcc`` flags (``-Xptxas -v`` to see
-    registers and spills) may be given in the environment variable
-    ``NLPS_NVCC_FLAGS``; the compiler's output is printed when there is any."""
-    src, lib = _paths(name)
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    extra = shlex.split(os.environ.get("NLPS_NVCC_FLAGS", ""))
-    cmd = [find_nvcc(), *NVCC_FLAGS, *extra, "-o", tmp, src]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(
-            f"nvcc build failed:\n{' '.join(cmd)}\nexit code {proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, lib)
-    if proc.stdout.strip():
-        print(proc.stdout.strip())
-    return lib
+    returns the library's path (see :func:`build_all`)."""
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

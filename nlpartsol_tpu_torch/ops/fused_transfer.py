@@ -8,17 +8,19 @@ kernels never do: for each slot the LME basis (λ-Newton + N + ∇N) is
 immediately contracted:
 
 * :func:`fused_scatter` — P2G: per-slot channel values (N-weighted) and/or
-  a per-slot 2×2 matrix G (gradient-weighted: contributes G·∇N_A to node A)
+  a per-slot d×d matrix G (gradient-weighted: contributes G·∇N_A to node A)
   are added into the node array.  Optionally runs the λ Newton solve (once
   per step) and returns the converged λ.
 * :func:`fused_gather` — G2P: node fields are contracted against N (channel
   gather) and ∇N (displacement-gradient gather) per slot.
 
-Axis convention (2D): grid dims = (n0, n1), flat node = i0·n1 + i1.  Slot
-arrays are capacity-major (ops/windowed.py) and passed channel-leading as
-(ch, C, n_cells); coordinate channel c is the position along grid axis c.
+Both dispatch on ``grid.dim``: 2D grids go to ``csrc/lme_transfer2d.cu``,
+3D grids to ``csrc/lme_transfer3d.cu``.  Axis convention: grid dims =
+(n0, n1[, n2]), flat node = i0·n1 + i1 (2D) or (i0·n1 + i1)·n2 + i2 (3D).
+Slot arrays are capacity-major (ops/windowed.py) and passed channel-leading
+as (ch, C, n_cells); coordinate channel c is the position along grid axis c.
 
-Source notes for the kernels (csrc/lme_transfer2d.cu):
+Source notes for the 2D kernels (csrc/lme_transfer2d.cu):
 
 ``lme_scatter2d`` replaces the TPU kernel ``pallas_transfer.py::
 fused_scatter`` (body ``_make_scatter_kernel``).  The function's bound on
@@ -37,6 +39,17 @@ the basis, so a warm-started slot sweeps the window three times in all.
 slot (max, moments, contraction) where the function needs one evaluation; the node
 fields (a few MB) are read through L2 with read-only loads, no atomics,
 the same result from run to run.
+
+``lme_scatter3d`` and ``lme_gather3d`` (csrc/lme_transfer3d.cu) replace
+the 3D TPU kernels of ``pallas_transfer3d.py``: ``fused_scatter3`` (rows
+layout, body ``_make_scatter_kernel3``) and ``_scatter_pallas3m``
+(merged-lane layout, body ``_make_scatter_kernel3m``) for the scatter,
+``fused_gather3`` (body ``_make_gather_kernel3``) and ``_gather_pallas3m``
+(body ``_make_gather_kernel3m``) for the gather.  The two TPU layouts are
+lane arrangements chosen by VMEM size; one thread per slot serves both.
+The balance is that of 2D with a larger window: 160 offsets at margin 0,
+432 at margin 1 (γ=3), 88 valid edges an active slot at 96³, a 3×3 Newton
+solve.
 
 Each wrapper takes the plain PyTorch version below only for tensors that
 lie on the CPU.  For a CUDA tensor it launches the kernel or raises.
@@ -60,7 +73,9 @@ from . import cuda_build, windowed
 Tensor = torch.Tensor
 
 MAX_CN = 8  # N-weighted channels per call (csrc: MAX_CN)
-MAX_PAIRS = 192  # window offsets per call (csrc: MAX_PAIRS)
+# window offsets per call, by dimension (csrc: MAX_PAIRS, MAX_TRIPS)
+MAX_OFFSETS = {2: 192, 3: 512}
+_SOURCES = {2: "lme_transfer2d", 3: "lme_transfer3d"}
 
 #: launches per kernel variant, e.g. ``launch_counts["lme_scatter2d:solve"]``.
 #: A wrapper adds one where it launches its kernel, and nowhere else.
@@ -73,9 +88,11 @@ def reset_launch_counts() -> None:
 
 class _Geom:
     """Static geometry shared by both kernels and their plain versions:
-    a function of the grid spacing, the LME parameters and the margin."""
+    a function of the dimension, the grid spacing, the LME parameters and
+    the margin."""
 
-    def __init__(self, h: float, params: lme_mod.LMEParams, margin: int):
+    def __init__(self, dim: int, h: float, params: lme_mod.LMEParams, margin: int):
+        self.dim = dim
         self.h = h
         self.beta = lme_mod.beta_of(params, h)
         r_sup = lme_mod.support_radius(params, h)
@@ -97,15 +114,14 @@ class _Geom:
             return max(0.0, o - 1.0 - margin, -o - margin)
 
         rm = r_sup / h
-        self.pairs = [
-            (o0, o1)
-            for o0 in range(-self.w, self.w + 1)
-            for o1 in range(-self.w, self.w + 1)
-            if _md(o0) ** 2 + _md(o1) ** 2 <= rm * rm
+        self.offsets = [
+            tuple(int(v) for v in o)
+            for o in window_offsets(dim, -self.w, self.w)
+            if sum(_md(v) ** 2 for v in o) <= rm * rm
         ]
-        # the kernels' window argument: a host array of (o0, o1) int pairs
-        self.offs_c = (ctypes.c_int * (2 * len(self.pairs)))(
-            *[o for pr in self.pairs for o in pr]
+        # the kernels' window argument: a host array of d-tuples of ints
+        self.offs_c = (ctypes.c_int * (dim * len(self.offsets)))(
+            *[v for o in self.offsets for v in o]
         )
 
 
@@ -113,13 +129,21 @@ _geom_of = functools.lru_cache(maxsize=32)(_Geom)
 
 
 def _geom(grid: Grid, params: lme_mod.LMEParams, margin: int) -> _Geom:
-    """The (cached) geometry of a 2D grid; four transfers a step share it."""
-    if grid.dim != 2:
-        raise NotImplementedError(
-            "fused transfer kernels are 2D; the 3D kernels come with "
-            "ROADMAP.md queue 2 (K3, K4)"
-        )
-    return _geom_of(grid.spacing, params, margin)
+    """The (cached) geometry of a 2D or 3D grid; four transfers a step
+    share it."""
+    if grid.dim not in _SOURCES:
+        raise ValueError(f"fused transfers take 2D and 3D grids, not {grid.dim}D")
+    return _geom_of(grid.dim, grid.spacing, params, margin)
+
+
+def _sq_norm(rel: Tensor) -> Tensor:
+    """Σ_i rel_i² summed axis by axis in order — the kernels' order, so the
+    radius mask r² ≤ R² is bit-identical on the card (a reduction kernel
+    may add three terms in any order)."""
+    sq = rel[..., 0] * rel[..., 0]
+    for i in range(1, rel.shape[-1]):
+        sq = sq + rel[..., i] * rel[..., i]
+    return sq
 
 
 # ---------------------------------------------------------------------------
@@ -135,8 +159,8 @@ def _plain_basis(g: _Geom, grid, box, params, x_t, lam_t, act_t, solve):
     x = from_channel_leading(x_t)
     lam0 = from_channel_leading(lam_t)
     act = from_channel_leading(act_t)[:, 0] > 0.5
-    offs = window_offsets(2, -g.w, g.w)  # widened window
-    cells = torch.as_tensor(windowed.slot_cells(box), device=dev)  # (Ns, 2)
+    offs = window_offsets(g.dim, -g.w, g.w)  # widened window
+    cells = torch.as_tensor(windowed.slot_cells(box), device=dev)  # (Ns, d)
     multi = cells[:, None, :] + torch.as_tensor(offs, device=dev)[None, :, :]
     lo, hi = grid.valid_bounds()
     inb = torch.all(
@@ -146,7 +170,7 @@ def _plain_basis(g: _Geom, grid, box, params, x_t, lam_t, act_t, solve):
     )
     node_pos = multi.to(x.dtype) * g.h + torch.tensor(grid.origin, dtype=x.dtype, device=dev)
     rel = x[:, None, :] - node_pos
-    sq = torch.sum(rel * rel, dim=-1)
+    sq = _sq_norm(rel)
     mask = inb & (sq <= torch.tensor(g.r2max, dtype=sq.dtype, device=dev)) & act[:, None]
     if solve:
         lam = lme_mod.solve_lambda(rel, mask, lam0, g.beta, params)
@@ -165,7 +189,7 @@ def _scatter_plain(grid, box, params, x_t, lam_t, act_t, fN_t, G_t, solve, margi
     fN = from_channel_leading(fN_t)  # (Ns, cN)
     cols = [N[..., None] * fN[:, None, :]]
     if G_t is not None:
-        G = from_channel_leading(G_t).reshape(-1, 2, 2)
+        G = from_channel_leading(G_t).reshape(-1, g.dim, g.dim)
         cols.append(dN @ G.transpose(-1, -2))  # Σ_j G_ij ∂_j N
     if gnorm:
         s = fN[:, -1]
@@ -185,10 +209,10 @@ def _gather_plain(grid, box, params, x_t, lam_t, act_t, gN, g_grad, margin):
     grad = None
     if g_grad is not None:
         per_cell = windowed.cell_edge_field(g_grad, box, grid, offs)
-        K = offs.shape[0]
+        K, d = offs.shape
         nc = box.n_cells
-        u = per_cell.reshape((1, nc, K, 2)).expand(box.capacity, nc, K, 2)
-        u = u.reshape(box.n_slots, K, 2)
+        u = per_cell.reshape((1, nc, K, d)).expand(box.capacity, nc, K, d)
+        u = u.reshape(box.n_slots, K, d)
         dNm = torch.where(mask[..., None], dN, torch.zeros_like(dN))
         grad = u.transpose(-1, -2) @ dNm  # grad[s,i,j] = Σ_k u_ki ∂_j N_k
     return outN, grad
@@ -199,18 +223,28 @@ def _gather_plain(grid, box, params, x_t, lam_t, act_t, gN, g_grad, margin):
 # ---------------------------------------------------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_GEOM_ARGS = [_I] * 10 + [_F] * 5 + [ctypes.POINTER(ctypes.c_int), _I]
 
 
-def _library():
-    lib = cuda_build.load("lme_transfer2d")
-    if lib.lme_scatter2d.argtypes is None:
+def _geom_argtypes(dim: int) -> list:
+    """Slot/box/grid ints, then floats, then the host window array and its
+    length (see ``_geom_args``)."""
+    n_int, n_float = (10, 5) if dim == 2 else (15, 6)
+    return [_I] * n_int + [_F] * n_float + [ctypes.POINTER(ctypes.c_int), _I]
+
+
+def _library(dim: int):
+    """The loaded library of the ``dim``-D kernels, built at first use."""
+    lib = cuda_build.load(_SOURCES[dim])
+    scatter = getattr(lib, f"lme_scatter{dim}d")
+    if scatter.argtypes is None:
+        gather = getattr(lib, f"lme_gather{dim}d")
         # c_void_p for every pointer and the stream: an unset argtype would
         # pass them as 32-bit ints and cut the pointers
-        lib.lme_scatter2d.argtypes = [_P] * 8 + _GEOM_ARGS + [_I] * 5 + [_F, _P]
-        lib.lme_scatter2d.restype = _I
-        lib.lme_gather2d.argtypes = [_P] * 7 + _GEOM_ARGS + [_I, _P]
-        lib.lme_gather2d.restype = _I
+        geom = _geom_argtypes(dim)
+        scatter.argtypes = [_P] * 8 + geom + [_I] * 5 + [_F, _P]
+        scatter.restype = _I
+        gather.argtypes = [_P] * 7 + geom + [_I, _P]
+        gather.restype = _I
     return lib
 
 
@@ -237,16 +271,22 @@ def _check_nodes(name, a, n_nodes, c, dev):
 
 
 def _geom_args(g: _Geom, grid: Grid, box: windowed.ActiveBox):
-    if len(g.pairs) > MAX_PAIRS:
+    """The geometry arguments of the C entry points: Ns, nc, the box's
+    trailing cell counts, its cell origin, the grid's trailing node counts,
+    the valid node bounds per axis; then h, β, R², the origin; then the
+    window."""
+    d = g.dim
+    if len(g.offsets) > MAX_OFFSETS[d]:
         raise ValueError(
-            f"LME window of {len(g.pairs)} offsets exceeds the kernels' {MAX_PAIRS}"
+            f"LME window of {len(g.offsets)} offsets exceeds the {d}D kernels' "
+            f"{MAX_OFFSETS[d]}"
         )
-    (lo0, lo1), (hi0, hi1) = grid.valid_bounds()
+    lo, hi = grid.valid_bounds()
+    bounds = [v for ax in range(d) for v in (lo[ax], hi[ax])]
     return [
-        box.n_slots, box.n_cells, box.cdims[1], box.offset[0], box.offset[1],
-        grid.dims[1], lo0, hi0, lo1, hi1,
-        g.h, g.beta, g.r2max, grid.origin[0], grid.origin[1],
-        g.offs_c, len(g.pairs),
+        box.n_slots, box.n_cells, *box.cdims[1:], *box.offset, *grid.dims[1:], *bounds,
+        g.h, g.beta, g.r2max, *grid.origin,
+        g.offs_c, len(g.offsets),
     ]
 
 
@@ -262,27 +302,30 @@ def _count_launch(kernel: str, **tags) -> None:
 
 def scatter_cuda(grid, box, params, x_t, lam_t, act_t, fN_t, G_t=None, solve=True,
                  margin=0, gnorm=False):
-    """Launch ``lme_scatter2d``.  Returns (nodes, lam, cnt) with ``cnt`` an
-    int32 pair [valid edges, Newton iterations summed over slots]."""
+    """Launch ``lme_scatter2d`` or ``lme_scatter3d`` (by ``grid.dim``).
+    Returns (nodes, lam, cnt) with ``cnt`` an int32 pair [valid edges,
+    Newton iterations summed over slots]."""
     g = _geom(grid, params, margin)
+    d = g.dim
     dev = x_t.device
     C, nc = box.capacity, box.n_cells
     if fN_t.ndim != 3 or not 1 <= fN_t.shape[0] <= MAX_CN:
         raise ValueError(f"fN_t: needs 1..{MAX_CN} channels, got shape {tuple(fN_t.shape)}")
     cN = fN_t.shape[0]
-    _check_slot("x_t", x_t, 2, C, nc, dev)
-    _check_slot("lam_t", lam_t, 2, C, nc, dev)
+    _check_slot("x_t", x_t, d, C, nc, dev)
+    _check_slot("lam_t", lam_t, d, C, nc, dev)
     _check_slot("act_t", act_t, 1, C, nc, dev)
     _check_slot("fN_t", fN_t, cN, C, nc, dev)
     if G_t is not None:
-        _check_slot("G_t", G_t, 4, C, nc, dev)
-    cout = cN + (2 if G_t is not None else 0) + (1 if gnorm else 0)
+        _check_slot("G_t", G_t, d * d, C, nc, dev)
+    cout = cN + (d if G_t is not None else 0) + (1 if gnorm else 0)
     nodes = torch.zeros((grid.n_nodes, cout), dtype=torch.float32, device=dev)
     lam_out = torch.empty_like(lam_t)
     cnt = torch.zeros((2,), dtype=torch.int32, device=dev)
-    lib = _library()
+    name = f"lme_scatter{d}d"
+    fn = getattr(_library(d), name)
     with torch.cuda.device(dev):
-        err = lib.lme_scatter2d(
+        err = fn(
             x_t.data_ptr(), lam_t.data_ptr(), act_t.data_ptr(), fN_t.data_ptr(),
             None if G_t is None else G_t.data_ptr(),
             nodes.data_ptr(), lam_out.data_ptr(), cnt.data_ptr(),
@@ -290,20 +333,22 @@ def scatter_cuda(grid, box, params, x_t, lam_t, act_t, fN_t, G_t=None, solve=Tru
             cN, int(G_t is not None), int(gnorm), int(solve), params.max_iter, g.tol2,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(err, "lme_scatter2d")
-    _count_launch("lme_scatter2d", solve=solve, G=G_t is not None, gnorm=gnorm)
+    _raise_on(err, name)
+    _count_launch(name, solve=solve, G=G_t is not None, gnorm=gnorm)
     return nodes, lam_out, cnt
 
 
 def gather_cuda(grid, box, params, x_t, lam_t, act_t, gN=None, g_grad=None, margin=0):
-    """Launch ``lme_gather2d``.  Returns (outN | None, grad | None)."""
+    """Launch ``lme_gather2d`` or ``lme_gather3d`` (by ``grid.dim``).
+    Returns (outN | None, grad | None)."""
     g = _geom(grid, params, margin)
+    d = g.dim
     dev = x_t.device
     C, nc = box.capacity, box.n_cells
     if gN is None and g_grad is None:
         raise ValueError("nothing to gather")
-    _check_slot("x_t", x_t, 2, C, nc, dev)
-    _check_slot("lam_t", lam_t, 2, C, nc, dev)
+    _check_slot("x_t", x_t, d, C, nc, dev)
+    _check_slot("lam_t", lam_t, d, C, nc, dev)
     _check_slot("act_t", act_t, 1, C, nc, dev)
     cN = 0
     if gN is not None:
@@ -312,17 +357,18 @@ def gather_cuda(grid, box, params, x_t, lam_t, act_t, gN=None, g_grad=None, marg
         if not 1 <= cN <= MAX_CN:
             raise ValueError(f"gN: needs 1..{MAX_CN} channels, got {cN}")
     if g_grad is not None:
-        _check_nodes("g_grad", g_grad, grid.n_nodes, 2, dev)
+        _check_nodes("g_grad", g_grad, grid.n_nodes, d, dev)
     ns = box.n_slots
     outN = torch.empty((ns, cN), dtype=torch.float32, device=dev) if cN else None
     outG = (
-        torch.empty((ns, 2, 2), dtype=torch.float32, device=dev)
+        torch.empty((ns, d, d), dtype=torch.float32, device=dev)
         if g_grad is not None
         else None
     )
-    lib = _library()
+    name = f"lme_gather{d}d"
+    fn = getattr(_library(d), name)
     with torch.cuda.device(dev):
-        err = lib.lme_gather2d(
+        err = fn(
             x_t.data_ptr(), lam_t.data_ptr(), act_t.data_ptr(),
             None if gN is None else gN.data_ptr(),
             None if g_grad is None else g_grad.data_ptr(),
@@ -331,8 +377,8 @@ def gather_cuda(grid, box, params, x_t, lam_t, act_t, gN=None, g_grad=None, marg
             *_geom_args(g, grid, box),
             cN, torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(err, "lme_gather2d")
-    _count_launch("lme_gather2d", N=gN is not None, grad=g_grad is not None)
+    _raise_on(err, name)
+    _count_launch(name, N=gN is not None, grad=g_grad is not None)
     return outN, outG
 
 
@@ -345,17 +391,17 @@ def fused_scatter(
     grid: Grid,
     box: windowed.ActiveBox,
     params: lme_mod.LMEParams,
-    x_t: Tensor,     # (2, C, nc) slot positions (world frame)
-    lam_t: Tensor,   # (2, C, nc) λ warm start
+    x_t: Tensor,     # (d, C, nc) slot positions (world frame)
+    lam_t: Tensor,   # (d, C, nc) λ warm start
     act_t: Tensor,   # (1, C, nc) active (0/1, float)
     fN_t: Tensor,    # (cN, C, nc) N-weighted channels
-    G_t: Optional[Tensor] = None,  # (4, C, nc) grad-weighted row-major 2×2
+    G_t: Optional[Tensor] = None,  # (d·d, C, nc) grad-weighted row-major d×d
     solve: bool = True,
     margin: int = 0,
     gnorm: bool = False,
 ):
-    """Fused LME+P2G.  Returns (nodes (n_nodes, cout), lam (2, C, nc), nnz);
-    cout = cN (+2 when G_t given, the Σ G·∇N vector appended; +1 when
+    """Fused LME+P2G.  Returns (nodes (n_nodes, cout), lam (d, C, nc), nnz);
+    cout = cN (+d when G_t given, the Σ G·∇N vector appended; +1 when
     ``gnorm``: Σ s·|∇N|² with s = the LAST fN channel — the Jacobi stiffness
     diagonal of the implicit path).  Node-plane validity comes from
     ``grid.valid_lo``/``grid.valid_hi``."""
@@ -371,14 +417,14 @@ def fused_gather(
     grid: Grid,
     box: windowed.ActiveBox,
     params: lme_mod.LMEParams,
-    x_t: Tensor,     # (2, C, nc)
-    lam_t: Tensor,   # (2, C, nc) converged λ
+    x_t: Tensor,     # (d, C, nc)
+    lam_t: Tensor,   # (d, C, nc) converged λ
     act_t: Tensor,   # (1, C, nc)
     gN: Optional[Tensor] = None,      # (n_nodes, cN)
-    g_grad: Optional[Tensor] = None,  # (n_nodes, 2)
+    g_grad: Optional[Tensor] = None,  # (n_nodes, d)
     margin: int = 0,
 ):
-    """Fused LME+G2P.  Returns (outN (Ns, cN) | None, grad (Ns, 2, 2) | None)
+    """Fused LME+G2P.  Returns (outN (Ns, cN) | None, grad (Ns, d, d) | None)
     where grad[s, i, j] = Σ_A g_grad[A, i]·∂N_A/∂x_j."""
     if gN is None and g_grad is None:
         raise ValueError("nothing to gather")

@@ -101,6 +101,34 @@ def problem(seed=0, n_side=12, n_particles=150, speed=0.0, slots=True, origin=(0
     return (gj, bj, pj, jlme.LMEParams(gamma=3.0)), (tg, tb, tp, tlme.LMEParams(gamma=3.0))
 
 
+def problem3(seed=0, n_side=8, n_particles=60, gamma=5.0, tol_zero=1e-6, speed=0.0):
+    """Random particles in the middle of an ``n_side``³ grid (the problem of
+    tests/test_pallas_transfer3d.py; γ=5 at tol_zero 1e-6 keeps the window
+    at 5³ nodes).  Returns (JAX grid, box, particles, LME params) and the
+    same four for the port, in slot layout."""
+    rng = np.random.default_rng(seed)
+    h = 1.0 / (n_side - 1)
+    gj = JGrid(dims=(n_side,) * 3, spacing=h, origin=(0.0, 0.0, 0.0))
+    x = rng.uniform(0.2, 0.8, size=(n_particles, 3)).astype(np.float32)
+    pj = jmake(
+        x,
+        mass=rng.uniform(0.5, 2.0, n_particles).astype(np.float32),
+        vol0=np.full(n_particles, h**3 / 8, np.float32),
+    )
+    if speed:
+        pj = pj.replace(
+            v=jnp.asarray(speed * rng.standard_normal((n_particles, 3)), jnp.float32)
+        )
+    probe = jwin.box_for_extent(gj, [0.15] * 3, [0.85] * 3, capacity=1, margin=1)
+    bj = probe.replace(capacity=max(4, jwin.required_capacity(gj, probe, x)))
+    tg, tb, tp = to_torch_grid(gj), to_torch_box(bj), to_torch_particles(pj)
+    tp = tex.to_slot_layout(tp, tg, tb)
+    pj = JParticles(**{k: jnp.asarray(v) for k, v in convert.particles_to_numpy(tp).items()})
+    lj = jlme.LMEParams(gamma=gamma, tol_zero=tol_zero)
+    lt = tlme.LMEParams(gamma=gamma, tol_zero=tol_zero)
+    return (gj, bj, pj, lj), (tg, tb, tp, lt)
+
+
 def neo_hookean_tables(E=1e6):
     mj = jM.material_table(
         [jM.material(kind="Neo-Hookean-Wriggers", E=E, nu=0.3, rho0=1000.0)]

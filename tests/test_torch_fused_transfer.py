@@ -158,7 +158,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         ft._check_slot("x_t", x_t.transpose(1, 2).contiguous().transpose(1, 2), 2, C, nc,
                        x_t.device)
-    grid3 = tg.replace(dims=(4, 4, 4), origin=(0.0, 0.0, 0.0))
-    with pytest.raises(NotImplementedError, match="K3"):
-        ft._geom(grid3, lt, 0)
+    # 2D and 3D grids have kernels (3D: tests/test_torch_fused_transfer3d.py)
+    grid1 = tg.replace(dims=(4,), origin=(0.0,))
+    with pytest.raises(ValueError, match="2D and 3D"):
+        ft._geom(grid1, lt, 0)
 

@@ -71,9 +71,10 @@ def test_3d_and_unknown_options_raise():
     _, (tg, tb, tp, lt) = problem(seed=0)
     _, mt = neo_hookean_tables()
     cfg = tex.ExplicitConfig(dt=1e-5, lme_params=lt, active_box=tb)
-    p3 = make_particles(np.zeros((4, 3), np.float32), np.ones(4), np.ones(4), device="cpu")
-    with pytest.raises(NotImplementedError, match="3D"):
-        tex.run(p3, tg, mt, cfg, 1)
+    # 3D runs (tests/test_torch_explicit3d.py); other dimensions raise
+    p1 = make_particles(np.zeros((4, 1), np.float32), np.ones(4), np.ones(4), device="cpu")
+    with pytest.raises(ValueError, match="2D and 3D"):
+        tex.run(p1, tg, mt, cfg, 1)
     with pytest.raises(ValueError, match="unknown transfer"):
         tex.explicit_step(tp, tg, mt, cfg.replace(transfer="magic"), torch.zeros(2))
     with pytest.raises(ValueError, match="active_box"):

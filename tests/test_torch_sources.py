@@ -1,9 +1,14 @@
 """The port's sources, read and not run: no import of JAX or of the JAX
-package anywhere in nlpartsol_tpu_torch/ or chip_smoke.py, and no
-torch.compile standing in for a kernel."""
+package anywhere in nlpartsol_tpu_torch/ or chip_smoke.py, no
+torch.compile standing in for a kernel, the CUDA sources present, and no
+port test file larger than 8 tests."""
 
 import ast
+import collections
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -48,4 +53,25 @@ def test_every_port_source_is_scanned_and_none_uses_torch_compile():
     assert len(scanned) >= 18
     for path in scanned:
         assert "torch.compile" not in path.read_text(), path
-    assert (PACKAGE / "csrc" / "lme_transfer2d.cu").is_file()
+    for name in ("lme_transfer2d.cu", "lme_transfer3d.cu", "roll_probe.cu"):
+        assert (PACKAGE / "csrc" / name).is_file(), name
+
+
+def test_every_port_test_file_holds_at_most_8_tests():
+    """pytest-xdist hands test files out largest first: a port file of 9 or
+    more tests would start before tests/test_pallas_transfer3d.py, the
+    suite's longest file, and push the whole run past its time limit
+    (ROADMAP.md, "What this container allows").  Counted as pytest collects
+    them, parametrised cases included."""
+    files = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "--collect-only", "-q", "-p", "no:cacheprovider",
+         "-p", "no:xdist", "-p", "no:randomly", *[str(f.relative_to(ROOT)) for f in files]],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "JAX_PLATFORMS": "cpu"},
+    )
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    per_file = collections.Counter(
+        line.split("::")[0] for line in out.stdout.splitlines() if "::" in line)
+    assert set(per_file) == {str(f.relative_to(ROOT)) for f in files}
+    assert max(per_file.values()) <= 8, per_file
