@@ -14,7 +14,8 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
   build      nvcc build + load of the kernels
   kernels    every kernel variant against its plain PyTorch version on a
              small grid (random positions and fields from a numpy seed):
-             2D 128², 3D 32³ (``kernels3d``), margins 0 and 1, valid bounds
+             2D 128², 3D 32³ (``kernels3d``, also ragged 21³ and 37³ boxes
+             of capacity 3), margins 0 and 1, valid bounds
   main_path  the JAX package's benchmark problem through ``to_slot_layout``
              + ``run``, with launch counts: 2D (bench.py) 512² nodes, 262,144
              particles, capacity-6 box of 260² cells, k=16 local rebin, 16
@@ -26,7 +27,9 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              and the port's windowed engine on the card (2D 16, 3D 8),
              matched by pid: rel_dx < 1e-3, rel_dv < 1e-2
   roofline   each kernel at the main path's shapes against its plain
-             version: time, plain time, bound
+             version: time, plain time, bound; in 3D also at margin 1
+             (rows ``…@margin1``, on no path: the window a re-bin period
+             k > 1 would need)
   probes     the lane-roll probes: a roll sum checked exactly against
              torch.roll, and timed beside its multiply-add twin at 4 shapes
   large      (if time allows) the fused path alone at the bigger size: 3D
@@ -175,27 +178,47 @@ def _slot_problem(seed, dim, n_side, lo_cell, n_cell, capacity, per_cell, drift,
 # The kernel variants of phases ``kernels`` (2D: 128² grid, 100² cells ×
 # capacity 6, 3 particles a cell) and ``kernels3d`` (32³ grid, 24³ cells ×
 # capacity 2, 1 particle a cell): scatter cases (label, margin, G, gnorm,
-# valid bounds, seed) and gather cases (label, margin, N, gradient, seed).
-# Scatters carry cN = d+1 channels (mass, mass·velocity), gathers d.
+# valid bounds, seed[, options]) and gather cases (label, margin, N,
+# gradient, seed[, options]).  Valid bounds: None, or how many planes inside
+# the box's ends they cut.  Scatters carry cN = d+1 channels (mass,
+# mass·velocity) unless an option says ``cN`` (the rest random), gathers d;
+# the option ``problem`` replaces the dimension's problem.  The 3D cases
+# after the first nine hold the redesigned kernels: a ragged box against
+# the scatter's cell tiles (21³ cells, capacity 3, 2 particles a cell, so
+# slots of rank > 0 carry particles), margin 1 with valid bounds, the
+# largest shared footprint (cN = 8, G and gnorm at margin 1: 12 channels),
+# a ragged 37³ box at capacity 3 (large enough to keep the 8×4×4 tile,
+# 3 slots a thread; the 24³ and 21³ boxes get 2×4×4 tiles), and a gather
+# of 5 channels (the kernel's runtime channel count; the step gathers 3).
+RAGGED3 = dict(problem=(32, 4, 21, 3, 2))
+RAGGED3_LARGE = dict(problem=(48, 5, 37, 3, 2))
 KERNEL_CASES = {
     2: dict(problem=(128, 14, 100, 6, 3), grid="128x128", box="100x100 cells x capacity 6",
-            scatter=[("solve,cN=3,margin=0", 0, False, False, False, 1),
-                     ("solve,cN=3,margin=1", 1, False, False, False, 2),
-                     ("solve,cN=3,G,margin=1", 1, True, False, False, 3),
-                     ("solve,cN=3,gnorm,margin=1", 1, False, True, False, 4),
-                     ("solve,cN=3,G,margin=0,valid_lo/hi", 0, True, False, True, 5)],
+            scatter=[("solve,cN=3,margin=0", 0, False, False, None, 1),
+                     ("solve,cN=3,margin=1", 1, False, False, None, 2),
+                     ("solve,cN=3,G,margin=1", 1, True, False, None, 3),
+                     ("solve,cN=3,gnorm,margin=1", 1, False, True, None, 4),
+                     ("solve,cN=3,G,margin=0,valid_lo/hi", 0, True, False, 1, 5)],
             gather=[("cN=2+grad,margin=1", 1, True, True, 6),
                     ("cN=2,margin=1", 1, True, False, 7)]),
     3: dict(problem=(32, 4, 24, 2, 1), grid="32x32x32", box="24^3 cells x capacity 2",
-            scatter=[("solve,cN=4,margin=0", 0, False, False, False, 11),
-                     ("solve,cN=4,margin=1", 1, False, False, False, 12),
-                     ("solve,cN=4,G,margin=1", 1, True, False, False, 13),
-                     ("solve,cN=4,gnorm,margin=1", 1, False, True, False, 14),
-                     ("solve,cN=4,G,margin=0,valid_lo/hi", 0, True, False, True, 15)],
+            scatter=[("solve,cN=4,margin=0", 0, False, False, None, 11),
+                     ("solve,cN=4,margin=1", 1, False, False, None, 12),
+                     ("solve,cN=4,G,margin=1", 1, True, False, None, 13),
+                     ("solve,cN=4,gnorm,margin=1", 1, False, True, None, 14),
+                     ("solve,cN=4,G,margin=0,valid_lo/hi", 0, True, False, 1, 15),
+                     ("solve,cN=4,G,margin=0,ragged 21^3 x C3", 0, True, False, None, 20,
+                      RAGGED3),
+                     ("solve,cN=4,G,margin=1,valid_lo/hi", 1, True, False, 0, 21),
+                     ("solve,cN=8,G,gnorm,margin=1", 1, True, True, None, 22, dict(cN=8)),
+                     ("solve,cN=4,G,margin=1,ragged 37^3 x C3", 1, True, False, None, 25,
+                      RAGGED3_LARGE)],
             gather=[("cN=3+grad,margin=1", 1, True, True, 16),
                     ("cN=3,margin=1", 1, True, False, 17),
                     ("grad,margin=0", 0, False, True, 18),
-                    ("cN=3+grad,margin=0", 0, True, True, 19)]),
+                    ("cN=3+grad,margin=0", 0, True, True, 19),
+                    ("cN=3+grad,margin=1,ragged 21^3 x C3", 1, True, True, 23, RAGGED3),
+                    ("cN=5+grad,margin=0", 0, True, True, 24, dict(cN=5))]),
 }
 
 
@@ -210,8 +233,9 @@ def phase_kernels(device, dim):
     spec = KERNEL_CASES[dim]
     cases = []
 
-    def problem(seed, margin):
-        return _slot_problem(seed, dim, *spec["problem"], 0.9 * margin, device)
+    def problem(seed, margin, opts):
+        return _slot_problem(seed, dim, *opts.get("problem", spec["problem"]), 0.9 * margin,
+                             device)
 
     def slot_inputs(p, box):
         C, nc = box.capacity, box.n_cells
@@ -222,29 +246,32 @@ def phase_kernels(device, dim):
     def rand(rng, *shape):
         return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=device)
 
-    def scatter_case(label, margin, has_G, gnorm, bounds, seed):
-        rng, grid, box, p = problem(seed, margin)
-        if bounds:
-            # valid node planes end where the particles end (they sit one
-            # cell inside the box), cutting planes out of every edge
-            # particle's window; axis 1 is cut one plane further out
-            lo, hi = box.offset[0] + 1, box.offset[0] + box.cdims[0] - 1
+    def scatter_case(label, margin, has_G, gnorm, bounds, seed, opts=None):
+        rng, grid, box, p = problem(seed, margin, opts or {})
+        if bounds is not None:
+            # valid node planes end ``bounds`` planes inside the box's ends
+            # (the particles sit one cell inside it, and drift up to 0.9
+            # cells at margin 1), cutting planes out of every edge particle's
+            # window; axis 1 is cut one plane further out
+            lo, hi = box.offset[0] + bounds, box.offset[0] + box.cdims[0] - bounds
             rest = (dim - 2)
             grid = grid.replace(valid_lo=(lo, lo - 1) + (lo,) * rest,
                                 valid_hi=(hi, hi + 1) + (hi,) * rest)
         C, nc = box.capacity, box.n_cells
         x_t, lam_t, act_t = slot_inputs(p, box)
         vel = rand(rng, p.count, dim)
+        cN = (opts or {}).get("cN", dim + 1)
         fN = ft.to_channel_leading(
-            torch.cat([p.mass[:, None], p.mass[:, None] * vel], dim=1), C, nc)
+            torch.cat([p.mass[:, None], p.mass[:, None] * vel,
+                       rand(rng, p.count, cN - dim - 1)], dim=1), C, nc)
         G_t = ft.to_channel_leading(rand(rng, p.count, dim * dim), C, nc) if has_G else None
         args = (grid, box, params, x_t, lam_t, act_t, fN)
         kw = dict(G_t=G_t, solve=True, margin=margin, gnorm=gnorm)
         nodes, lam, nnz = ft.fused_scatter(*args, **kw)
         torch.cuda.synchronize()
         r_nodes, r_lam, r_nnz = ft._scatter_plain(*args, G_t, True, margin, gnorm)
-        cN = dim + 1
-        out = dict(kernel=f"lme_scatter{dim}d", case=label)
+        out = dict(kernel=f"lme_scatter{dim}d", case=label, slots=box.n_slots,
+                   active=int(p.active.sum()))
         out["N"] = compare(label + ":N", nodes[:, :cN], r_nodes[:, :cN], **TOL_N)
         if has_G or gnorm:
             out["grad"] = compare(label + ":grad", nodes[:, cN:], r_nodes[:, cN:], **TOL_GRAD)
@@ -259,8 +286,8 @@ def phase_kernels(device, dim):
         out["plain_ms"] = cuda_ms(lambda: ft._scatter_plain(*args, G_t, True, margin, gnorm), 2)
         cases.append(out)
 
-    def gather_case(label, margin, with_N, with_grad, seed):
-        rng, grid, box, p = problem(seed, margin)
+    def gather_case(label, margin, with_N, with_grad, seed, opts=None):
+        rng, grid, box, p = problem(seed, margin, opts or {})
         C, nc = box.capacity, box.n_cells
         x_t, lam_t, act_t = slot_inputs(p, box)
         dummy = ft.to_channel_leading(p.mass, C, nc)
@@ -268,8 +295,12 @@ def phase_kernels(device, dim):
         _, lam_t, _ = ft._scatter_plain(grid, box, params, x_t, lam_t, act_t, dummy,
                                         None, True, margin, False)
         field = rand(rng, grid.n_nodes, dim)
+        # the N-gather reads the gradient's field, or a field of its own
+        # with the option ``cN``
+        cN = (opts or {}).get("cN")
+        gN = rand(rng, grid.n_nodes, cN) if cN else field
         args = (grid, box, params, x_t, lam_t, act_t)
-        kw = dict(gN=field if with_N else None, g_grad=field if with_grad else None,
+        kw = dict(gN=gN if with_N else None, g_grad=field if with_grad else None,
                   margin=margin)
         got = ft.fused_gather(*args, **kw)
         torch.cuda.synchronize()
@@ -505,16 +536,34 @@ def _bound(n_bytes, n_ops):
 
 def phase_roofline(grid, p1, mats, cfg, counts):
     """Each kernel at the shapes (and on the state) the main path gives it,
-    against its plain version: error, time, plain time, bound."""
+    against its plain version: error, time, plain time, bound.  In 3D the
+    four calls are also timed at margin 1 (rows ``…@margin1``, 432 window
+    offsets): the window a re-bin period k > 1 would need.  The 3D main path
+    (k = 1) runs none of them, so their launches are those of their own
+    timed run."""
+    d = grid.dim
+    main = 0 if cfg.rebin_every == 1 else 1
+    margins = [main] + ([1] if d == 3 and main == 0 else [])
+    rows, stats = [], []
+    for margin in margins:
+        stats.append(_roofline_rows(grid, p1, cfg, counts if margin == main else None,
+                                    margin, rows))
+    say(phase="roofline" + _suffix(d), slots=cfg.active_box.n_slots,
+        active=int(p1.active.sum()), margins=stats,
+        peaks=dict(f32_flops=PEAK_F32_FLOPS, bytes_per_s=PEAK_BYTES_PER_S))
+    return rows
+
+
+def _roofline_rows(grid, p, cfg, counts, margin, rows):
+    """The four calls of a step at ``margin``, appended to ``rows``;
+    ``counts`` are the main path's launches, or None off the path."""
     from nlpartsol_tpu_torch.ops import fused_transfer as ft
 
     d = grid.dim
     ops_of = OPS[d]
     box, params = cfg.active_box, cfg.lme_params
-    margin = 0 if cfg.rebin_every == 1 else 1
     C, nc, ns = box.capacity, box.n_cells, box.n_slots
     n_nodes = grid.n_nodes
-    p = p1
     dt = cfg.dt
     x_t = ft.to_channel_leading(p.x, C, nc)
     lam_t = ft.to_channel_leading(p.lme_lambda, C, nc)
@@ -535,10 +584,11 @@ def phase_roofline(grid, p1, mats, cfg, counts):
     # 1 GiB: rewriting it keeps the card busy longer than the host needs to
     # queue the next launch, so the events bracket device time only
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=p.x.device)
-    rows = []
     scatter, gather = f"lme_scatter{d}d", f"lme_gather{d}d"
+    tag = "" if counts is not None else f"@margin{margin}"
 
-    def row(name, fn_kernel, fn_plain, checks, n_bytes, n_ops):
+    def row(key, fn_kernel, fn_plain, checks, n_bytes, n_ops):
+        name = key + tag
         got, ref = fn_kernel(), fn_plain()
         torch.cuda.synchronize()
         err = 0.0
@@ -546,15 +596,21 @@ def phase_roofline(grid, p1, mats, cfg, counts):
             err = max(err, compare(f"{name}:{label}", pick(got), pick(ref), **tol)["max_abs"])
         del ref
         bound_ms, bound_by = _bound(n_bytes, n_ops)
-        replaces, also = REPLACES[name.split(":")[0]]
+        replaces, also = REPLACES[key.split(":")[0]]
+        ft.reset_launch_counts()
+        ms = cuda_ms(fn_kernel, 10, flush)
+        off_path = {}
+        if counts is None:
+            off_path = dict(path=f"none: the {d}D main path runs margin 0 (k = 1); "
+                                 "launches are those of this row's timed run")
         rows.append(dict(
             name=name, route="cuda",
             source=f"nlpartsol_tpu_torch/csrc/lme_transfer{d}d.cu",
             replaces=replaces, **({"also_replaces": also} if also else {}),
-            launches=counts[name], max_abs_err=err,
-            ms=cuda_ms(fn_kernel, 10, flush), plain_ms=cuda_ms(fn_plain, 2, flush),
+            launches=counts[key] if counts is not None else ft.launch_counts[key],
+            max_abs_err=err, ms=ms, plain_ms=cuda_ms(fn_plain, 2, flush),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            bytes=n_bytes, operations=n_ops))
+            bytes=n_bytes, operations=n_ops, **off_path))
         return got
 
     # per slot: x and λ in, λ out (d each), active 1
@@ -605,11 +661,8 @@ def phase_roofline(grid, p1, mats, cfg, counts):
         lambda: ft._gather_plain(*base, lam_new, act_t, accel, None, margin),
         [("N", lambda o: o[0], TOL_N)],
         (2 * d + 1) * b_act + b_idle + d * b_nodes + d * b_all, tests + nnz * per_edge)
-
-    say(phase="roofline" + _suffix(d), slots=ns, active=n_active, window_offsets=n_offs,
-        nnz=nnz, newton_iterations_per_active_slot=iters / n_active,
-        peaks=dict(f32_flops=PEAK_F32_FLOPS, bytes_per_s=PEAK_BYTES_PER_S))
-    return rows
+    return dict(margin=margin, window_offsets=n_offs, nnz=nnz,
+                newton_iterations_per_active_slot=iters / n_active)
 
 
 def phase_profile(grid, p1, mats, cfg, label="profile"):

@@ -13,30 +13,53 @@
 // vector lanes, chosen by the size of the TPU's vector memory; they compute
 // the same function.  On this card one thread per slot serves both.
 //
-// Design (as lme_transfer2d.cu).  Slot arrays are channel-leading (ch, C, nc)
-// with slot = rank*nc + cell and the cell index fastest along box axis 2, so
-// the threads of a warp read neighbouring addresses and, for one window
-// offset, touch neighbouring nodes.  No per-edge tensor reaches device
-// memory: the basis is recomputed in registers in each sweep over the
-// window.  The window is the static, radius-culled offset list of the slot's
-// cell (160 offsets at margin 0, 432 at margin 1, gamma = 3), passed by value
-// as int8 triples, so it lives in the constant bank and a warp-uniform read
-// is a broadcast.  The cell comes from the slot index, never from the
-// position: with a drift margin the particle may sit in a neighbouring cell,
-// and the radius mask r^2 <= R^2 alone keeps the basis exact.
+// Data.  Slot arrays are channel-leading (ch, C, nc) with slot = rank*nc +
+// cell and the cell index fastest along box axis 2.  No per-edge tensor
+// reaches device memory: the basis is recomputed in registers in each sweep
+// over the window.  The window is the static, radius-culled offset list of
+// the slot's cell (160 offsets in 32 rows at margin 0, 432 in 60 at margin
+// 1, gamma = 3), passed by value as rows (o0, o1, o2 range) of int8, so a
+// warp-uniform read is a broadcast from the constant bank; the wrapper
+// orders the rows nearest-first.  The cell comes from the slot index, never
+// from the position: with a drift margin the particle may sit in a
+// neighbouring cell, and the radius mask r^2 <= R^2 alone keeps the basis
+// exact.
 //
 // What bounds them.  The function needs each slot channel and node once and,
 // per active slot, the window test once per offset and f/exp/moments once
 // per evaluation of the basis: 0.4-1.0 GFLOP and 18-28 MB a call at 281,216
-// slots, 6-15 microseconds on an H100, operations ahead of bytes.  These
-// kernels take 14-28 times that and spend it on operations, because
-// recompute over store repeats the window test and f/exp in each of the
-// three sweeps (max, moments, emit) and about 45 % of the tested offsets
-// lie outside the support radius; the scatter ends in
-// one f32 atomic add into L2 per edge and channel.  A converged Newton
-// iteration's moments are reused for the basis.  Nothing is done yet about
-// atomic contention or the repeated sweeps (shared-memory tiles are later
-// work).
+// slots, 6-15 microseconds on an H100, operations ahead of bytes.  Measured
+// on the earlier design of these kernels (one thread per slot, three sweeps,
+// a global f32 atomic per edge and channel), the global atomics took a third
+// to a half of a scatter and the repeated sweeps the rest; node reads and
+// the gather's row stores took almost nothing.  This design:
+//
+//   * One sweep per evaluation.  A running max of f, with S0, S1, S2 (and
+//     the gather's sums) rescaled by 2^(old - new) when it rises: a Newton
+//     iteration is one sweep, the scatter's emit one more; the gather is one
+//     sweep in all, because at fixed lambda grad N_A = -N_A J^-1 (l_A - rbar)
+//     lets it sum e*g_A and e*g_A (x) l_A beside the moments and apply J^-1
+//     and rbar = S1/Z once per slot at the end.  f is taken in base 2 so
+//     that exp is exp2.
+//   * Cheaper sweeps.  A row of the window is skipped when its axis 0/1 part
+//     of r^2 alone exceeds R^2, and its o2 range is cut to the nodes near x2
+//     that can lie inside the radius (with a node of slack): only offsets the
+//     exact test rejects are skipped, and most of those (45 % of the window
+//     at 96^3) are.
+//   * Node sums in shared memory.  A scatter block walks a 3D tile of box
+//     cells (all capacity ranks) and adds each edge into the tile's node
+//     footprint in shared memory; after a barrier it flushes each non-zero
+//     footprint entry with one global atomic, a few per cell and channel
+//     instead of one per edge and channel (88 an active slot).  A float
+//     atomic add on shared memory is a CAS loop on this card
+//     (ATOMS.CAST.SPIN); packing two channels into one 64-bit CAS measured
+//     slower.  The plan (tile, footprint = tile + the window's offset span, dynamic
+//     shared bytes) comes from fused_transfer.py::tile_plan; ragged edge
+//     tiles are masked.
+//
+// What is left: the shared-memory CAS loops (a third of a scatter), the window
+// test of the rows and ranges that remain, and an exp2 per valid edge per
+// sweep.
 //
 // Mask arithmetic (node position, r, r^2, summed axis by axis) uses
 // explicitly rounded operations (__fmul_rn, __fadd_rn, __fsub_rn) so that it
@@ -48,21 +71,33 @@
 #define MAX_TRIPS 512
 #define MAX_CN 8
 #define NEG_BIG (-1e30f)
+#define LOG2E 1.4426950408889634f
 #define BLOCK 128
 
-struct Window {  // 4 + 3 * 512 bytes: well inside the 4 KB parameter space
+// The window as rows: offsets (o0, o1, o2) for o2 in [lo2, hi2].  4 + 4 * 512
+// bytes, well inside the 4 KB parameter space; read warp-uniformly, so from
+// the constant bank as broadcasts.
+struct Window {
   int n;
   signed char o0[MAX_TRIPS];
   signed char o1[MAX_TRIPS];
-  signed char o2[MAX_TRIPS];
+  signed char lo2[MAX_TRIPS];
+  signed char hi2[MAX_TRIPS];
 };
 
 struct Geom {
-  int Ns, nc, c1, c2;               // slots, cells, cells along box axes 1, 2
+  int Ns, nc, c0, c1, c2;           // slots, cells, cells along box axes 0, 1, 2
   int b0, b1, b2;                   // box cell origin (grid frame)
   int n1, n2;                       // nodes along grid axes 1, 2
   int lo0, hi0, lo1, hi1, lo2, hi2; // inclusive valid node-index bounds
-  float h, beta, r2max, org0, org1, org2;
+  float h, inv_h, beta, r2max, org0, org1, org2;
+};
+
+// The scatter's cell tiles: t cells per axis, q tiles along box axes 1 and 2,
+// f footprint nodes per axis, m the window's lowest offset per axis (the
+// footprint of the tile at box cell a starts at node b + a + m).
+struct Tiles {
+  int t0, t1, t2, q1, q2, f0, f1, f2, m0, m1, m2;
 };
 
 struct Slot {
@@ -75,59 +110,80 @@ struct Moments {  // S2 holds the symmetric second moment: 00 01 02 11 12 22
   float fmax, S0, S1[3], S2[6];
 };
 
-// One window edge: relative position, flat node id; true if the node is
-// valid and inside the support radius.
-__device__ __forceinline__ bool edge(const Geom& g, const Slot& s, int o0, int o1, int o2,
-                                     float& r0, float& r1, float& r2, float& sq, int& node) {
-  const int i0 = s.i0 + o0, i1 = s.i1 + o1, i2 = s.i2 + o2;
-  r0 = __fsub_rn(s.x0, __fadd_rn(__fmul_rn((float)i0, g.h), g.org0));
-  r1 = __fsub_rn(s.x1, __fadd_rn(__fmul_rn((float)i1, g.h), g.org1));
-  r2 = __fsub_rn(s.x2, __fadd_rn(__fmul_rn((float)i2, g.h), g.org2));
-  sq = __fadd_rn(__fadd_rn(__fmul_rn(r0, r0), __fmul_rn(r1, r1)), __fmul_rn(r2, r2));
-  node = (i0 * g.n1 + i1) * g.n2 + i2;
-  return (i0 >= g.lo0) & (i0 <= g.hi0) & (i1 >= g.lo1) & (i1 <= g.hi1) &
-         (i2 >= g.lo2) & (i2 <= g.hi2) & (sq <= g.r2max);
+// Calls body(r0, r1, r2, sq, i0, i1, i2) for each valid edge of the slot:
+// window node (i0, i1, i2) inside the valid bounds and the support radius,
+// r = x - x_node and sq = |r|^2.  The mask arithmetic (node position, r,
+// and sq summed axis by axis) is that of the plain version, bit for bit.  A
+// row is skipped when its axis 0/1 part alone exceeds R^2 (sq >= that part),
+// and its o2 range is cut to the nodes within sqrt(R^2 - part) of x2 plus a
+// node of slack either side: everything skipped is an offset the exact test
+// sq <= R^2 rejects, by a margin of about h^2.
+template <class Body>
+__device__ __forceinline__ void for_each_edge(const Geom& g, const Window& w, const Slot& s,
+                                              Body&& body) {
+  const float u2 = (s.x2 - g.org2) * g.inv_h;  // x2 in node units
+  for (int k = 0; k < w.n; ++k) {
+    const int i0 = s.i0 + w.o0[k], i1 = s.i1 + w.o1[k];
+    if ((i0 < g.lo0) | (i0 > g.hi0) | (i1 < g.lo1) | (i1 > g.hi1)) continue;
+    const float r0 = __fsub_rn(s.x0, __fadd_rn(__fmul_rn((float)i0, g.h), g.org0));
+    const float r1 = __fsub_rn(s.x1, __fadd_rn(__fmul_rn((float)i1, g.h), g.org1));
+    const float p = __fadd_rn(__fmul_rn(r0, r0), __fmul_rn(r1, r1));
+    if (p > g.r2max) continue;
+    const float d = sqrtf(g.r2max - p) * g.inv_h;
+    const int a = max(max(s.i2 + w.lo2[k], g.lo2), __float2int_ru(u2 - d) - 1);
+    const int b = min(min(s.i2 + w.hi2[k], g.hi2), __float2int_rd(u2 + d) + 1);
+    for (int i2 = a; i2 <= b; ++i2) {
+      const float r2 = __fsub_rn(s.x2, __fadd_rn(__fmul_rn((float)i2, g.h), g.org2));
+      const float sq = __fadd_rn(p, __fmul_rn(r2, r2));
+      if (sq <= g.r2max) body(r0, r1, r2, sq, i0, i1, i2);
+    }
+  }
 }
 
-__device__ __forceinline__ float fval(const Geom& g, const Slot& s, float r0, float r1,
-                                      float r2, float sq) {
-  return -g.beta * sq + s.lam0 * r0 + s.lam1 * r1 + s.lam2 * r2;
+// f = -beta r^2 + lambda.r in base-2 units (f * log2 e), so that exp is exp2.
+__device__ __forceinline__ float fval2(const Geom& g, const Slot& s, float r0, float r1,
+                                       float r2, float sq) {
+  return (-g.beta * sq + s.lam0 * r0 + s.lam1 * r1 + s.lam2 * r2) * LOG2E;
 }
 
-// Two sweeps: max of f over the valid edges, then the e-weighted moments
-// S0 = sum e, S1 = sum e*l, S2 = sum e*l(x)l with e = exp(f - fmax).
-// Returns the number of valid edges.
+// e = 2^(f - fmax) against a running max: when f rises above it, the N sums
+// in ``acc`` are rescaled to the new max first.
+template <int N>
+__device__ __forceinline__ float running_exp2(float f, float& fmax, float* acc) {
+  if (f > fmax) {
+    const float sc = exp2f(fmax - f);
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[i] *= sc;
+    fmax = f;
+  }
+  return exp2f(f - fmax);
+}
+
+// One sweep: the e-weighted moments S0 = sum e, S1 = sum e*l,
+// S2 = sum e*l(x)l with e = exp(f - max f) over the valid edges.  Returns
+// the number of valid edges.
 template <bool NEED_MOMENTS>
 __device__ __forceinline__ int sweep_moments(const Geom& g, const Window& w, const Slot& s,
                                              Moments& m) {
   float fmax = NEG_BIG;
+  float S[10] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // S0, S1[3], S2[6]
   int cnt = 0;
-  for (int k = 0; k < w.n; ++k) {
-    float r0, r1, r2, sq; int node;
-    if (edge(g, s, w.o0[k], w.o1[k], w.o2[k], r0, r1, r2, sq, node)) {
-      fmax = fmaxf(fmax, fval(g, s, r0, r1, r2, sq));
-      ++cnt;
+  for_each_edge(g, w, s, [&](float r0, float r1, float r2, float sq, int, int, int) {
+    ++cnt;
+    const float e = running_exp2<NEED_MOMENTS ? 10 : 1>(fval2(g, s, r0, r1, r2, sq), fmax, S);
+    S[0] += e;
+    if (NEED_MOMENTS) {
+      const float e0 = e * r0, e1 = e * r1, e2 = e * r2;
+      S[1] += e0; S[2] += e1; S[3] += e2;
+      S[4] += e0 * r0; S[5] += e0 * r1; S[6] += e0 * r2;
+      S[7] += e1 * r1; S[8] += e1 * r2; S[9] += e2 * r2;
     }
-  }
-  float S0 = 0.f, S1[3] = {0.f, 0.f, 0.f}, S2[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int k = 0; k < w.n; ++k) {
-    float r0, r1, r2, sq; int node;
-    if (edge(g, s, w.o0[k], w.o1[k], w.o2[k], r0, r1, r2, sq, node)) {
-      const float e = expf(fval(g, s, r0, r1, r2, sq) - fmax);
-      S0 += e;
-      if (NEED_MOMENTS) {
-        const float e0 = e * r0, e1 = e * r1, e2 = e * r2;
-        S1[0] += e0; S1[1] += e1; S1[2] += e2;
-        S2[0] += e0 * r0; S2[1] += e0 * r1; S2[2] += e0 * r2;
-        S2[3] += e1 * r1; S2[4] += e1 * r2; S2[5] += e2 * r2;
-      }
-    }
-  }
-  m.fmax = fmax; m.S0 = S0;
+  });
+  m.fmax = fmax; m.S0 = S[0];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) m.S1[i] = S1[i];
+  for (int i = 0; i < 3; ++i) m.S1[i] = S[1 + i];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) m.S2[i] = S2[i];
+  for (int i = 0; i < 6; ++i) m.S2[i] = S[4 + i];
   return cnt;
 }
 
@@ -168,18 +224,19 @@ __device__ __forceinline__ void grad_n(float N, float r0, float r1, float r2, co
   d2 = -N * (inv[2] * a0 + inv[4] * a1 + inv[5] * a2);
 }
 
-__device__ __forceinline__ bool load_slot(const Geom& g, int s, const float* __restrict__ x,
+// Slot s of box cell (c0, c1, c2): its lambda, and if it is active its
+// position and cell corner.
+__device__ __forceinline__ bool load_slot(const Geom& g, int s, int c0, int c1, int c2,
+                                          const float* __restrict__ x,
                                           const float* __restrict__ lam,
                                           const float* __restrict__ act, Slot& sl) {
   sl.lam0 = lam[s];
   sl.lam1 = lam[g.Ns + s];
   sl.lam2 = lam[2 * g.Ns + s];
   if (!(act[s] > 0.5f)) return false;
-  const int cell = s % g.nc;
-  const int row = cell / g.c2;  // c0-major, then c1
-  sl.i0 = g.b0 + row / g.c1;
-  sl.i1 = g.b1 + row % g.c1;
-  sl.i2 = g.b2 + cell % g.c2;
+  sl.i0 = g.b0 + c0;
+  sl.i1 = g.b1 + c1;
+  sl.i2 = g.b2 + c2;
   sl.x0 = x[s];
   sl.x1 = x[g.Ns + s];
   sl.x2 = x[2 * g.Ns + s];
@@ -199,22 +256,41 @@ struct ScatterIO {
   float tol2;
 };
 
+// One block per cell tile.  Shared memory: the tile's footprint sums,
+// channel-major (cout, f0*f1*f2).
 template <bool SOLVE, bool NEED_DN>
 __global__ void __launch_bounds__(BLOCK)
-lme_scatter3d_kernel(const Geom g, const Window w, const ScatterIO io) {
-  const int s = blockIdx.x * BLOCK + threadIdx.x;
+lme_scatter3d_kernel(const Geom g, const Window w, const Tiles t, const ScatterIO io) {
+  extern __shared__ float acc[];
+  const int F = t.f0 * t.f1 * t.f2;
+  for (int i = threadIdx.x; i < F * io.cout; i += BLOCK) acc[i] = 0.f;
+  // the tile's first box cell
+  const int a0 = blockIdx.x / (t.q1 * t.q2) * t.t0;
+  const int a1 = blockIdx.x / t.q2 % t.q1 * t.t1;
+  const int a2 = blockIdx.x % t.q2 * t.t2;
+  __syncthreads();
+
+  // the footprint's first node (grid frame)
+  const int n0 = g.b0 + a0 + t.m0, n1 = g.b1 + a1 + t.m1, n2 = g.b2 + a2 + t.m2;
+  const int tc = t.t0 * t.t1 * t.t2;
+  const int C = g.Ns / g.nc;
   int n_edges = 0, n_iter = 0;
-  if (s < g.Ns) {
+  for (int k = threadIdx.x; k < C * tc; k += BLOCK) {
+    const int rank = k / tc, lc = k % tc;
+    const int l0 = lc / (t.t1 * t.t2), l1 = lc / t.t2 % t.t1, l2 = lc % t.t2;
+    const int c0 = a0 + l0, c1 = a1 + l1, c2 = a2 + l2;
+    if (c0 >= g.c0 || c1 >= g.c1 || c2 >= g.c2) continue;  // ragged edge tile
+    const int s = rank * g.nc + (c0 * g.c1 + c1) * g.c2 + c2;
     Slot sl;
-    const bool active = load_slot(g, s, io.x, io.lam, io.act, sl);
-    if (active) {
+    if (load_slot(g, s, c0, c1, c2, io.x, io.lam, io.act, sl)) {
       Moments m;
       bool fresh = false;  // m holds the moments at the current lambda
+      int ne = 0;          // the slot's valid edges
       if (SOLVE) {
         // pallas_transfer3d.py::_lambda_newton3; a converged slot stops
         // alone (its lambda would be frozen on the TPU, so values agree)
         for (int it = 0; it < io.max_iter; ++it) {
-          n_edges = sweep_moments<true>(g, w, sl, m);
+          ne = sweep_moments<true>(g, w, sl, m);
           ++n_iter;
           float r[3], inv[6];
           r_and_Jinv(m, r, inv);
@@ -225,9 +301,10 @@ lme_scatter3d_kernel(const Geom g, const Window w, const ScatterIO io) {
           sl.lam2 -= inv[2] * r[0] + inv[4] * r[1] + inv[5] * r[2];
         }
       }
-      if (!fresh) n_edges = sweep_moments<NEED_DN>(g, w, sl, m);
+      if (!fresh) ne = sweep_moments<NEED_DN>(g, w, sl, m);
+      n_edges += ne;
 
-      const float Zs = fmaxf(m.S0, 1e-30f);
+      const float iz = 1.0f / fmaxf(m.S0, 1e-30f);
       float rb[3] = {0.f, 0.f, 0.f}, inv[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (NEED_DN) r_and_Jinv(m, rb, inv);
 
@@ -245,31 +322,46 @@ lme_scatter3d_kernel(const Geom g, const Window w, const ScatterIO io) {
         if (io.gnorm) sg = io.fN[(io.cN - 1) * g.Ns + s];
       }
 
-      for (int k = 0; k < w.n; ++k) {
-        float r0, r1, r2, sq; int node;
-        if (!edge(g, sl, w.o0[k], w.o1[k], w.o2[k], r0, r1, r2, sq, node)) continue;
-        const float N = expf(fval(g, sl, r0, r1, r2, sq) - m.fmax) / Zs;
-        float* out = io.nodes + (size_t)node * io.cout;
+      // node (i0, i1, i2) sits at ((i0 - n0)*f1 + i1 - n1)*f2 + i2 - n2 in the
+      // footprint
+      const int shift = (n0 * t.f1 + n1) * t.f2 + n2;
+      for_each_edge(g, w, sl, [&](float r0, float r1, float r2, float sq, int i0, int i1,
+                                  int i2) {
+        const float N = exp2f(fval2(g, sl, r0, r1, r2, sq) - m.fmax) * iz;
+        float* out = acc + ((i0 * t.f1 + i1) * t.f2 + i2 - shift);
 #pragma unroll
         for (int c = 0; c < MAX_CN; ++c)
-          if (c < io.cN) atomicAdd(out + c, N * fv[c]);
+          if (c < io.cN && fv[c] != 0.f) atomicAdd(out + c * F, N * fv[c]);
         if (NEED_DN) {
           float d0, d1, d2;
           grad_n(N, r0, r1, r2, rb, inv, d0, d1, d2);
           if (io.has_G) {
-            atomicAdd(out + io.cN, G[0] * d0 + G[1] * d1 + G[2] * d2);
-            atomicAdd(out + io.cN + 1, G[3] * d0 + G[4] * d1 + G[5] * d2);
-            atomicAdd(out + io.cN + 2, G[6] * d0 + G[7] * d1 + G[8] * d2);
+            atomicAdd(out + io.cN * F, G[0] * d0 + G[1] * d1 + G[2] * d2);
+            atomicAdd(out + (io.cN + 1) * F, G[3] * d0 + G[4] * d1 + G[5] * d2);
+            atomicAdd(out + (io.cN + 2) * F, G[6] * d0 + G[7] * d1 + G[8] * d2);
           }
-          if (io.gnorm) atomicAdd(out + io.cout - 1, sg * (d0 * d0 + d1 * d1 + d2 * d2));
+          if (io.gnorm)
+            atomicAdd(out + (io.cout - 1) * F, sg * (d0 * d0 + d1 * d1 + d2 * d2));
         }
-      }
+      });
     }
     // an inactive slot passes its lambda through unchanged
     io.lam_out[s] = sl.lam0;
     io.lam_out[g.Ns + s] = sl.lam1;
     io.lam_out[2 * g.Ns + s] = sl.lam2;
   }
+  __syncthreads();
+
+  // flush: one global atomic per non-zero footprint entry, consecutive
+  // threads on neighbouring addresses of a node row (node-major, cout wide)
+  for (int i = threadIdx.x; i < F * io.cout; i += BLOCK) {
+    const int c = i % io.cout, fl = i / io.cout;
+    const float v = acc[c * F + fl];
+    if (v == 0.f) continue;  // untouched, or outside the valid nodes
+    const int j0 = n0 + fl / (t.f1 * t.f2), j1 = n1 + fl / t.f2 % t.f1, j2 = n2 + fl % t.f2;
+    atomicAdd(io.nodes + ((size_t)(j0 * g.n1 + j1) * g.n2 + j2) * io.cout + c, v);
+  }
+
   // one integer atomic per warp and counter
   n_edges = __reduce_add_sync(0xffffffffu, n_edges);
   n_iter = __reduce_add_sync(0xffffffffu, n_iter);
@@ -287,103 +379,185 @@ struct GatherIO {
   const float* gg;     // (n_nodes, 3) or null
   float* outN;         // (Ns, cN)
   float* outG;         // (Ns, 3, 3): outG[s,i,j] = sum_A gg[A,i] dN_A/dx_j
-  int cN;
+  int cN, same;        // same: gN is gg (cN = 3), its rows are read once
 };
 
-template <bool HAS_N, bool HAS_GRAD>
+// One sweep at fixed lambda.  With e = exp(f - max f) and l = x_p - x_A:
+//   S0 = sum e, S1 = sum e*l, S2 = sum e*l(x)l, q_c = sum e*gN_A,c,
+//   p_i = sum e*gg_A,i, M_ik = sum e*gg_A,i*l_k;
+// then N-gather q/Z and, with rbar = S1/Z and J^-1 from S2,
+//   outG_ij = -(1/Z) sum_k (M_ik - p_i*rbar_k) J^-1_kj,
+// which is sum_A gg_A,i dN_A/dx_j with dN_A = -N_A J^-1 (l_A - rbar).
+// CN: the N-gather's channel count when it is fixed at compile time (3, the
+// 3D step's gathers), else 0 and io.cN.  Loads of a row whose length is
+// known only at run time would each wait behind a branch, so the runtime
+// count loads MAX_CN channels (clamped to the row) before any add.
+template <bool HAS_N, bool HAS_GRAD, int CN>
 __global__ void __launch_bounds__(BLOCK)
 lme_gather3d_kernel(const Geom g, const Window w, const GatherIO io) {
   const int s = blockIdx.x * BLOCK + threadIdx.x;
   if (s >= g.Ns) return;
-  float acc[MAX_CN];
+  // running sums, all rescaled together: S0, S1[3], S2[6], p[3], M[9] (with
+  // the gradient), q[MAX_CN]
+  constexpr int NG = HAS_GRAD ? 22 : 1;
+  float acc[NG + MAX_CN];
 #pragma unroll
-  for (int c = 0; c < MAX_CN; ++c) acc[c] = 0.f;
-  float Gs[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) Gs[i] = 0.f;
+  for (int i = 0; i < NG + MAX_CN; ++i) acc[i] = 0.f;
+  float* q = acc + NG;
   Slot sl;
-  if (load_slot(g, s, io.x, io.lam, io.act, sl)) {
-    Moments m;
-    sweep_moments<HAS_GRAD>(g, w, sl, m);
-    const float Zs = fmaxf(m.S0, 1e-30f);
-    float rb[3] = {0.f, 0.f, 0.f}, inv[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (HAS_GRAD) r_and_Jinv(m, rb, inv);
-    for (int k = 0; k < w.n; ++k) {
-      float r0, r1, r2, sq; int node;
-      if (!edge(g, sl, w.o0[k], w.o1[k], w.o2[k], r0, r1, r2, sq, node)) continue;
-      const float N = expf(fval(g, sl, r0, r1, r2, sq) - m.fmax) / Zs;
-      if (HAS_N) {
-        const float* f = io.gN + (size_t)node * io.cN;
-#pragma unroll
-        for (int c = 0; c < MAX_CN; ++c)
-          if (c < io.cN) acc[c] += N * __ldg(f + c);
-      }
+  const int cell = s % g.nc;
+  const bool active = load_slot(g, s, cell / (g.c1 * g.c2), cell / g.c2 % g.c1, cell % g.c2,
+                                io.x, io.lam, io.act, sl);
+  if (active) {
+    float fmax = NEG_BIG;
+    for_each_edge(g, w, sl, [&](float r0, float r1, float r2, float sq, int i0, int i1,
+                                int i2) {
+      const size_t node = (size_t)(i0 * g.n1 + i1) * g.n2 + i2;
+      const float e = running_exp2<NG + MAX_CN>(fval2(g, sl, r0, r1, r2, sq), fmax, acc);
+      acc[0] += e;
       if (HAS_GRAD) {
-        float d0, d1, d2;
-        grad_n(N, r0, r1, r2, rb, inv, d0, d1, d2);
+        const float e0 = e * r0, e1 = e * r1, e2 = e * r2;
+        acc[1] += e0; acc[2] += e1; acc[3] += e2;
+        acc[4] += e0 * r0; acc[5] += e0 * r1; acc[6] += e0 * r2;
+        acc[7] += e1 * r1; acc[8] += e1 * r2; acc[9] += e2 * r2;
         // a 12-byte row: three scalar loads, no vector load
-        const float* u = io.gg + (size_t)node * 3;
-        const float u0 = __ldg(u), u1 = __ldg(u + 1), u2 = __ldg(u + 2);
-        Gs[0] += u0 * d0; Gs[1] += u0 * d1; Gs[2] += u0 * d2;
-        Gs[3] += u1 * d0; Gs[4] += u1 * d1; Gs[5] += u1 * d2;
-        Gs[6] += u2 * d0; Gs[7] += u2 * d1; Gs[8] += u2 * d2;
+        const float* u = io.gg + node * 3;
+        const float eu[3] = {e * __ldg(u), e * __ldg(u + 1), e * __ldg(u + 2)};
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          acc[10 + i] += eu[i];
+          acc[13 + 3 * i] += eu[i] * r0;
+          acc[14 + 3 * i] += eu[i] * r1;
+          acc[15 + 3 * i] += eu[i] * r2;
+        }
       }
+      if (HAS_N && !(HAS_GRAD && io.same)) {
+        const int cn = CN ? CN : io.cN;
+        const float* f_ = io.gN + node * cn;
+        float v[MAX_CN];
+#pragma unroll
+        for (int c = 0; c < (CN ? CN : MAX_CN); ++c) v[c] = __ldg(f_ + min(c, cn - 1));
+#pragma unroll
+        for (int c = 0; c < (CN ? CN : MAX_CN); ++c)
+          if (c < cn) q[c] += e * v[c];
+      }
+    });
+    if (HAS_GRAD && io.same) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) q[c] = acc[10 + c];
     }
   }
-  // inactive slots write zeros
+  // an inactive slot writes zeros: every sum is 0, and so is every product
+  // with 1/max(Z, 1e-30)
+  const float iz = 1.0f / fmaxf(acc[0], 1e-30f);
   if (HAS_N) {
 #pragma unroll
     for (int c = 0; c < MAX_CN; ++c)
-      if (c < io.cN) io.outN[(size_t)s * io.cN + c] = acc[c];
+      if (c < io.cN) io.outN[(size_t)s * io.cN + c] = q[c] * iz;
   }
   if (HAS_GRAD) {
+    Moments m;
+    m.S0 = acc[0];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) m.S1[i] = acc[1 + i];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) m.S2[i] = acc[4 + i];
+    float rb[3], inv[6];
+    r_and_Jinv(m, rb, inv);
+    const float J[9] = {inv[0], inv[1], inv[2], inv[1], inv[3], inv[4], inv[2], inv[4], inv[5]};
     float* o = io.outG + (size_t)s * 9;
 #pragma unroll
-    for (int i = 0; i < 9; ++i) o[i] = Gs[i];
+    for (int i = 0; i < 3; ++i) {
+      const float a[3] = {acc[13 + 3 * i] - acc[10 + i] * rb[0],
+                          acc[14 + 3 * i] - acc[10 + i] * rb[1],
+                          acc[15 + 3 * i] - acc[10 + i] * rb[2]};
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        o[3 * i + j] = -iz * (a[0] * J[j] + a[1] * J[3 + j] + a[2] * J[6 + j]);
+    }
   }
 }
 
+// The window's n_offs (o0, o1, o2) triples as rows: a run of triples with
+// the same (o0, o1) and o2 rising by one is one row, in the order given.
 static int fill_window(Window& w, const int* offs, int n_offs) {
   if (n_offs < 1 || n_offs > MAX_TRIPS) return 1;
-  w.n = n_offs;
+  w.n = 0;
   for (int k = 0; k < n_offs; ++k) {
     const int a = offs[3 * k], b = offs[3 * k + 1], c = offs[3 * k + 2];
     if (a < -127 || a > 127 || b < -127 || b > 127 || c < -127 || c > 127) return 1;
-    w.o0[k] = (signed char)a;
-    w.o1[k] = (signed char)b;
-    w.o2[k] = (signed char)c;
+    const int r = w.n - 1;
+    if (r >= 0 && w.o0[r] == a && w.o1[r] == b && w.hi2[r] + 1 == c) {
+      w.hi2[r] = (signed char)c;
+      continue;
+    }
+    w.o0[w.n] = (signed char)a;
+    w.o1[w.n] = (signed char)b;
+    w.lo2[w.n] = w.hi2[w.n] = (signed char)c;
+    ++w.n;
   }
   return 0;
 }
 
-static Geom make_geom(int Ns, int nc, int c1, int c2, int b0, int b1, int b2, int n1, int n2,
-                      int lo0, int hi0, int lo1, int hi1, int lo2, int hi2, float h,
-                      float beta, float r2max, float org0, float org1, float org2) {
-  Geom g;
-  g.Ns = Ns; g.nc = nc; g.c1 = c1; g.c2 = c2;
+static int make_geom(Geom& g, int Ns, int nc, int c1, int c2, int b0, int b1, int b2, int n1,
+                     int n2, int lo0, int hi0, int lo1, int hi1, int lo2, int hi2, float h,
+                     float beta, float r2max, float org0, float org1, float org2) {
+  if (Ns < 1 || nc < 1 || c1 < 1 || c2 < 1 || Ns % nc || nc % (c1 * c2)) return 1;
+  g.Ns = Ns; g.nc = nc; g.c0 = nc / (c1 * c2); g.c1 = c1; g.c2 = c2;
   g.b0 = b0; g.b1 = b1; g.b2 = b2; g.n1 = n1; g.n2 = n2;
   g.lo0 = lo0; g.hi0 = hi0; g.lo1 = lo1; g.hi1 = hi1; g.lo2 = lo2; g.hi2 = hi2;
-  g.h = h; g.beta = beta; g.r2max = r2max; g.org0 = org0; g.org1 = org1; g.org2 = org2;
-  return g;
+  g.h = h; g.inv_h = 1.0f / h; g.beta = beta; g.r2max = r2max; g.org0 = org0; g.org1 = org1; g.org2 = org2;
+  return 0;
 }
 
 // Both entry points return a cudaError_t as int (0 = success; 1 =
 // cudaErrorInvalidValue also for arguments refused here).  ``offs`` is a HOST
-// array of n_offs (o0, o1, o2) triples.  Launches on ``stream``; never
+// array of n_offs (o0, o1, o2) triples; ``plan`` (scatter) a HOST array of
+// the tile plan: tile cells t0 t1 t2, footprint nodes f0 f1 f2, lowest
+// window offset m0 m1 m2 per axis.  Launches on ``stream``; never
 // synchronises.
+template <bool SOLVE, bool NEED_DN>
+static int launch_scatter(const Geom& g, const Window& w, const Tiles& t, const ScatterIO& io,
+                          int blocks, int smem, cudaStream_t st) {
+  auto kernel = lme_scatter3d_kernel<SOLVE, NEED_DN>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<blocks, BLOCK, smem, st>>>(g, w, t, io);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int lme_scatter3d(
     const void* x, const void* lam, const void* act, const void* fN, const void* G,
     void* nodes, void* lam_out, void* cnt,
     int Ns, int nc, int c1, int c2, int b0, int b1, int b2, int n1, int n2,
     int lo0, int hi0, int lo1, int hi1, int lo2, int hi2,
     float h, float beta, float r2max, float org0, float org1, float org2,
-    const int* offs, int n_offs,
+    const int* offs, int n_offs, const int* plan,
     int cN, int has_G, int gnorm, int solve, int max_iter, float tol2, void* stream) {
   Window w;
+  Geom g;
   if (fill_window(w, offs, n_offs)) return 1;
-  if (cN < 1 || cN > MAX_CN || Ns < 1) return 1;
-  const Geom g = make_geom(Ns, nc, c1, c2, b0, b1, b2, n1, n2, lo0, hi0, lo1, hi1, lo2, hi2,
-                           h, beta, r2max, org0, org1, org2);
+  if (cN < 1 || cN > MAX_CN) return 1;
+  if (make_geom(g, Ns, nc, c1, c2, b0, b1, b2, n1, n2, lo0, hi0, lo1, hi1, lo2, hi2, h, beta,
+                r2max, org0, org1, org2))
+    return 1;
+  Tiles t;
+  t.t0 = plan[0]; t.t1 = plan[1]; t.t2 = plan[2];
+  t.f0 = plan[3]; t.f1 = plan[4]; t.f2 = plan[5];
+  t.m0 = plan[6]; t.m1 = plan[7]; t.m2 = plan[8];
+  if (t.t0 < 1 || t.t1 < 1 || t.t2 < 1) return 1;
+  t.q1 = (g.c1 + t.t1 - 1) / t.t1;
+  t.q2 = (g.c2 + t.t2 - 1) / t.t2;
+  const int q0 = (g.c0 + t.t0 - 1) / t.t0;
+  // every window node of every tile cell must fall inside the footprint
+  for (int k = 0; k < w.n; ++k) {
+    if (w.o0[k] < t.m0 || w.o0[k] + t.t0 > t.m0 + t.f0 || w.o1[k] < t.m1 ||
+        w.o1[k] + t.t1 > t.m1 + t.f1 || w.lo2[k] < t.m2 || w.hi2[k] + t.t2 > t.m2 + t.f2)
+      return 1;
+  }
   ScatterIO io;
   io.x = (const float*)x; io.lam = (const float*)lam; io.act = (const float*)act;
   io.fN = (const float*)fN; io.G = (const float*)G;
@@ -391,14 +565,15 @@ extern "C" int lme_scatter3d(
   io.cN = cN; io.has_G = has_G; io.gnorm = gnorm;
   io.cout = cN + (has_G ? 3 : 0) + (gnorm ? 1 : 0);
   io.max_iter = max_iter; io.tol2 = tol2;
-  const dim3 grid((Ns + BLOCK - 1) / BLOCK), block(BLOCK);
+  // fused_transfer.py::tile_plan keeps this within a block's 227 KB
+  const long long smem = 4LL * t.f0 * t.f1 * t.f2 * io.cout;
+  const int blocks = q0 * t.q1 * t.q2;
   cudaStream_t st = (cudaStream_t)stream;
   const bool need_dn = has_G || gnorm;
-  if (solve && need_dn) lme_scatter3d_kernel<true, true><<<grid, block, 0, st>>>(g, w, io);
-  else if (solve) lme_scatter3d_kernel<true, false><<<grid, block, 0, st>>>(g, w, io);
-  else if (need_dn) lme_scatter3d_kernel<false, true><<<grid, block, 0, st>>>(g, w, io);
-  else lme_scatter3d_kernel<false, false><<<grid, block, 0, st>>>(g, w, io);
-  return (int)cudaGetLastError();
+  if (solve && need_dn) return launch_scatter<true, true>(g, w, t, io, blocks, (int)smem, st);
+  if (solve) return launch_scatter<true, false>(g, w, t, io, blocks, (int)smem, st);
+  if (need_dn) return launch_scatter<false, true>(g, w, t, io, blocks, (int)smem, st);
+  return launch_scatter<false, false>(g, w, t, io, blocks, (int)smem, st);
 }
 
 extern "C" int lme_gather3d(
@@ -409,19 +584,29 @@ extern "C" int lme_gather3d(
     float h, float beta, float r2max, float org0, float org1, float org2,
     const int* offs, int n_offs, int cN, void* stream) {
   Window w;
+  Geom g;
   if (fill_window(w, offs, n_offs)) return 1;
   const bool has_n = gN != nullptr, has_grad = gg != nullptr;
-  if ((!has_n && !has_grad) || (has_n && (cN < 1 || cN > MAX_CN)) || Ns < 1) return 1;
-  const Geom g = make_geom(Ns, nc, c1, c2, b0, b1, b2, n1, n2, lo0, hi0, lo1, hi1, lo2, hi2,
-                           h, beta, r2max, org0, org1, org2);
+  if ((!has_n && !has_grad) || (has_n && (cN < 1 || cN > MAX_CN))) return 1;
+  if (make_geom(g, Ns, nc, c1, c2, b0, b1, b2, n1, n2, lo0, hi0, lo1, hi1, lo2, hi2, h, beta,
+                r2max, org0, org1, org2))
+    return 1;
   GatherIO io;
   io.x = (const float*)x; io.lam = (const float*)lam; io.act = (const float*)act;
   io.gN = (const float*)gN; io.gg = (const float*)gg;
   io.outN = (float*)outN; io.outG = (float*)outG; io.cN = has_n ? cN : 0;
+  io.same = has_n && has_grad && gN == gg && cN == 3;
   const dim3 grid((Ns + BLOCK - 1) / BLOCK), block(BLOCK);
   cudaStream_t st = (cudaStream_t)stream;
-  if (has_n && has_grad) lme_gather3d_kernel<true, true><<<grid, block, 0, st>>>(g, w, io);
-  else if (has_n) lme_gather3d_kernel<true, false><<<grid, block, 0, st>>>(g, w, io);
-  else lme_gather3d_kernel<false, true><<<grid, block, 0, st>>>(g, w, io);
+  if (has_n && has_grad && cN == 3)
+    lme_gather3d_kernel<true, true, 3><<<grid, block, 0, st>>>(g, w, io);
+  else if (has_n && has_grad)
+    lme_gather3d_kernel<true, true, 0><<<grid, block, 0, st>>>(g, w, io);
+  else if (has_n && cN == 3)
+    lme_gather3d_kernel<true, false, 3><<<grid, block, 0, st>>>(g, w, io);
+  else if (has_n)
+    lme_gather3d_kernel<true, false, 0><<<grid, block, 0, st>>>(g, w, io);
+  else
+    lme_gather3d_kernel<false, true, 0><<<grid, block, 0, st>>>(g, w, io);
   return (int)cudaGetLastError();
 }

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use ``nvcc``
 compiles it for ``sm_90a`` into a shared library under
 ``nlpartsol_tpu_torch/build/`` (git-ignored), and ``ctypes`` loads it.  The
-library's file name carries a hash of the source, so an edited source is
-never served by a stale build.  A failed build raises with the compiler's
-output; nothing falls back to another path.
+library's file name carries a hash of the source and of the compiler
+flags, so an edited source, or another flag, is never served by a stale
+build (the sources include no header of their own).  A failed build raises
+with the compiler's output; nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -43,11 +44,16 @@ def find_nvcc() -> str:
     )
 
 
+def _extra_flags() -> list:
+    return shlex.split(os.environ.get("NLPS_NVCC_FLAGS", ""))
+
+
 def _paths(name: str):
     src = os.path.join(CSRC_DIR, name + ".cu")
     with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+        h = hashlib.sha256(fh.read())
+    h.update("\0".join(NVCC_FLAGS + _extra_flags()).encode())
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build_all(names) -> list:
@@ -55,8 +61,9 @@ def build_all(names) -> list:
     one ``nvcc`` per source, all started together; returns the libraries'
     paths.  Extra ``nvcc`` flags (``-Xptxas -v`` to see registers and
     spills) may be given in the environment variable ``NLPS_NVCC_FLAGS``;
-    the compiler's output is printed when there is any."""
-    extra = shlex.split(os.environ.get("NLPS_NVCC_FLAGS", ""))
+    they are part of the library's hash, so they always rebuild.  The
+    compiler's output is printed when there is any."""
+    extra = _extra_flags()
     libs, running = [], []
     for name in names:
         src, lib = _paths(name)

@@ -47,9 +47,25 @@ layout, body ``_make_scatter_kernel3``) and ``_scatter_pallas3m``
 ``fused_gather3`` (body ``_make_gather_kernel3``) and ``_gather_pallas3m``
 (body ``_make_gather_kernel3m``) for the gather.  The two TPU layouts are
 lane arrangements chosen by VMEM size; one thread per slot serves both.
-The balance is that of 2D with a larger window: 160 offsets at margin 0,
-432 at margin 1 (γ=3), 88 valid edges an active slot at 96³, a 3×3 Newton
-solve.
+The window is larger than in 2D (160 offsets at margin 0, 432 at margin 1,
+γ=3; 88 valid edges an active slot at 96³) and the Newton solve is 3×3, so
+the 2D design's repeated sweeps and per-edge global atomics cost more (the
+atomics a third to a half of a 3D scatter); the 3D kernels are designed
+against both:
+
+* each evaluation of the moments is one sweep over the window, against a
+  running max of f (sums rescaled when it rises): a Newton iteration is one
+  sweep, and the gather is one sweep in all — at fixed λ it sums
+  e·g_A and e·g_A⊗l_A beside the moments and applies J⁻¹ and r̄ = S1/Z once
+  per slot (∇N_A = −N_A·J⁻¹(l_A − r̄) summed);
+* the window is walked as rows (o0, o1 fixed), each cut per slot to the o2
+  range that can meet the support radius: only offsets the exact test
+  r² ≤ R² rejects are skipped, so nnz stays equal to the plain version's;
+* a scatter block walks a tile of box cells (:func:`tile_plan`, 8×4×4,
+  thinner on a small box; every capacity rank) and adds each edge into
+  the tile's node footprint in shared memory, then flushes each non-zero
+  footprint entry with one global atomic instead of one per edge and
+  channel.
 
 Each wrapper takes the plain PyTorch version below only for tensors that
 lie on the CPU.  For a CUDA tensor it launches the kernel or raises.
@@ -60,7 +76,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -75,6 +91,12 @@ Tensor = torch.Tensor
 MAX_CN = 8  # N-weighted channels per call (csrc: MAX_CN)
 # window offsets per call, by dimension (csrc: MAX_PAIRS, MAX_TRIPS)
 MAX_OFFSETS = {2: 192, 3: 512}
+# cells of a 3D scatter tile per box axis, the fewest tiles a box is cut into
+# (two blocks for each of an H100's 132 SMs), and the shared memory a block
+# may use on an H100 (the one check of it is tile_plan's)
+TILE = (8, 4, 4)
+MIN_TILES = 2 * 132
+MAX_SHARED_BYTES = 232448
 _SOURCES = {2: "lme_transfer2d", 3: "lme_transfer3d"}
 
 #: launches per kernel variant, e.g. ``launch_counts["lme_scatter2d:solve"]``.
@@ -119,10 +141,14 @@ class _Geom:
             for o in window_offsets(dim, -self.w, self.w)
             if sum(_md(v) ** 2 for v in o) <= rm * rm
         ]
-        # the kernels' window argument: a host array of d-tuples of ints
-        self.offs_c = (ctypes.c_int * (dim * len(self.offsets)))(
-            *[v for o in self.offsets for v in o]
-        )
+        # the kernels' window argument: a host array of d-tuples of ints.  The
+        # 3D kernels walk it as rows (o0, o1 fixed, o2 rising), taken
+        # nearest-first from the cell centre so that the running max of f
+        # over a slot's window settles in its first rows
+        order = self.offsets
+        if dim == 3:
+            order = sorted(order, key=lambda o: ((o[0] - 0.5) ** 2 + (o[1] - 0.5) ** 2, o))
+        self.offs_c = (ctypes.c_int * (dim * len(order)))(*[v for o in order for v in o])
 
 
 _geom_of = functools.lru_cache(maxsize=32)(_Geom)
@@ -134,6 +160,46 @@ def _geom(grid: Grid, params: lme_mod.LMEParams, margin: int) -> _Geom:
     if grid.dim not in _SOURCES:
         raise ValueError(f"fused transfers take 2D and 3D grids, not {grid.dim}D")
     return _geom_of(grid.dim, grid.spacing, params, margin)
+
+
+class TilePlan(NamedTuple):
+    """The cell tiles of ``lme_scatter3d``: one block per tile."""
+
+    tile: tuple       # cells per box axis
+    footprint: tuple  # nodes per axis: tile + the window's offset span
+    lo: tuple         # the window's lowest offset per axis
+    counts: tuple     # tiles per box axis (the last ones ragged)
+    shared_bytes: int  # the footprint's sums, cout float32 channels
+
+
+def tile_plan(cdims, offsets, cout: int) -> TilePlan:
+    """Tile plan of ``lme_scatter3d`` for a box of ``cdims`` cells, a window
+    of ``offsets`` and ``cout`` output channels: ``TILE`` cut to the box,
+    its axis 0 halved (down to 2 cells) while the box has fewer than
+    ``MIN_TILES`` tiles.  A block's threads walk its slots in series, so a
+    small box in large tiles runs a few long blocks: on an H100, a 24³-cell
+    box in 108 tiles of 8×4×4 took 1.5-2.0× the time of one block per 128
+    slots, in 432 tiles of 2×4×4 about the same (PERF.md).  Raises ValueError when the footprint's sums
+    exceed the shared memory of a block; the plan is never shrunk to fit."""
+    t = [min(a, c) for a, c in zip(TILE, cdims)]
+    while t[0] > 2 and int(np.prod([-(-c // a) for c, a in zip(cdims, t)])) < MIN_TILES:
+        t[0] //= 2
+    lo = tuple(min(o[ax] for o in offsets) for ax in range(3))
+    hi = tuple(max(o[ax] for o in offsets) for ax in range(3))
+    foot = tuple(t[ax] + hi[ax] - lo[ax] for ax in range(3))
+    shared = 4 * cout * int(np.prod(foot))
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"lme_scatter3d tile {tuple(t)} with a {foot} node footprint and {cout} "
+            f"channels needs {shared} bytes of shared memory, above the "
+            f"{MAX_SHARED_BYTES} a block may use"
+        )
+    counts = tuple(-(-c // a) for c, a in zip(cdims, t))
+    return TilePlan(tuple(t), foot, lo, counts, shared)
+
+
+_tile_plan_of = functools.lru_cache(maxsize=64)(
+    lambda cdims, g, cout: tile_plan(cdims, g.offsets, cout))
 
 
 def _sq_norm(rel: Tensor) -> Tensor:
@@ -241,7 +307,8 @@ def _library(dim: int):
         # c_void_p for every pointer and the stream: an unset argtype would
         # pass them as 32-bit ints and cut the pointers
         geom = _geom_argtypes(dim)
-        scatter.argtypes = [_P] * 8 + geom + [_I] * 5 + [_F, _P]
+        plan = [ctypes.POINTER(ctypes.c_int)] if dim == 3 else []
+        scatter.argtypes = [_P] * 8 + geom + plan + [_I] * 5 + [_F, _P]
         scatter.restype = _I
         gather.argtypes = [_P] * 7 + geom + [_I, _P]
         gather.restype = _I
@@ -322,6 +389,10 @@ def scatter_cuda(grid, box, params, x_t, lam_t, act_t, fN_t, G_t=None, solve=Tru
     nodes = torch.zeros((grid.n_nodes, cout), dtype=torch.float32, device=dev)
     lam_out = torch.empty_like(lam_t)
     cnt = torch.zeros((2,), dtype=torch.int32, device=dev)
+    plan = []
+    if d == 3:
+        tp = _tile_plan_of(tuple(box.cdims), g, cout)
+        plan = [(ctypes.c_int * 9)(*tp.tile, *tp.footprint, *tp.lo)]
     name = f"lme_scatter{d}d"
     fn = getattr(_library(d), name)
     with torch.cuda.device(dev):
@@ -329,7 +400,7 @@ def scatter_cuda(grid, box, params, x_t, lam_t, act_t, fN_t, G_t=None, solve=Tru
             x_t.data_ptr(), lam_t.data_ptr(), act_t.data_ptr(), fN_t.data_ptr(),
             None if G_t is None else G_t.data_ptr(),
             nodes.data_ptr(), lam_out.data_ptr(), cnt.data_ptr(),
-            *_geom_args(g, grid, box),
+            *_geom_args(g, grid, box), *plan,
             cN, int(G_t is not None), int(gnorm), int(solve), params.max_iter, g.tol2,
             torch.cuda.current_stream(dev).cuda_stream,
         )
