@@ -14,8 +14,9 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
   build      nvcc build + load of the kernels
   kernels    every kernel variant against its plain PyTorch version on a
              small grid (random positions and fields from a numpy seed):
-             2D 128², 3D 32³ (``kernels3d``, also ragged 21³ and 37³ boxes
-             of capacity 3), margins 0 and 1, valid bounds
+             2D 128² (also a ragged 37×53 box of capacity 3 and a 24² box),
+             3D 32³ (``kernels3d``, also ragged 21³ and 37³ boxes of
+             capacity 3), margins 0 and 1, valid bounds
   main_path  the JAX package's benchmark problem through ``to_slot_layout``
              + ``run``, with launch counts: 2D (bench.py) 512² nodes, 262,144
              particles, capacity-6 box of 260² cells, k=16 local rebin, 16
@@ -39,6 +40,9 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              ``main_path3d,profile3d``) where the main path's steps spend
              their time: plain and re-bin step times, device-busy share,
              kernels per step
+  tiles      (only when asked: ``--phases tiles`` or ``tiles3d``) the main
+             path's two scatter calls timed with each candidate cell tile
+             of ``fused_transfer.TILE``, each checked against the first
 
 The line ``{"kernels": [...]}`` lists every kernel with its launches on
 its path (counts set to 0 just before the path's timed run and read just
@@ -146,9 +150,9 @@ def phase_build():
 
 
 def _slot_problem(seed, dim, n_side, lo_cell, n_cell, capacity, per_cell, drift, device):
-    """Random particles in a box of ``n_cell``^dim cells starting at cell
-    ``lo_cell``, binned to slots (overflow dropped), then moved by up to
-    ``drift`` cells."""
+    """Random particles in a box of ``n_cell``^dim cells (or of the cells
+    per axis ``n_cell`` gives) starting at cell ``lo_cell``, binned to slots
+    (overflow dropped), then moved by up to ``drift`` cells."""
     from nlpartsol_tpu_torch.formulations.explicit import to_slot_layout
     from nlpartsol_tpu_torch.ops import windowed
     from nlpartsol_tpu_torch.types import Grid, make_particles
@@ -156,16 +160,16 @@ def _slot_problem(seed, dim, n_side, lo_cell, n_cell, capacity, per_cell, drift,
     rng = np.random.default_rng(seed)
     h = 1.0 / (n_side - 1)
     grid = Grid(dims=(n_side,) * dim, spacing=h, origin=(0.0,) * dim)
-    n = per_cell * n_cell ** dim
-    x = ((lo_cell + 1) + (n_cell - 2) * rng.random((n, dim))) * h
+    cdims = tuple(n_cell) if isinstance(n_cell, tuple) else (n_cell,) * dim
+    n = per_cell * int(np.prod(cdims))
+    x = ((lo_cell + 1) + (np.asarray(cdims) - 2) * rng.random((n, dim))) * h
     p = make_particles(
         x.astype(np.float32),
         mass=rng.uniform(0.5, 2.0, n).astype(np.float32),
         vol0=np.full(n, h ** dim / per_cell, np.float32),
         device=device,
     )
-    box = windowed.ActiveBox(offset=(lo_cell,) * dim, cdims=(n_cell,) * dim,
-                             capacity=capacity)
+    box = windowed.ActiveBox(offset=(lo_cell,) * dim, cdims=cdims, capacity=capacity)
     p = to_slot_layout(p, grid, box, allow_lost=True)
     if drift:
         dx = torch.as_tensor(
@@ -182,14 +186,17 @@ def _slot_problem(seed, dim, n_side, lo_cell, n_cell, capacity, per_cell, drift,
 # gradient, seed[, options]).  Valid bounds: None, or how many planes inside
 # the box's ends they cut.  Scatters carry cN = d+1 channels (mass,
 # mass·velocity) unless an option says ``cN`` (the rest random), gathers d;
-# the option ``problem`` replaces the dimension's problem.  The 3D cases
-# after the first nine hold the redesigned kernels: a ragged box against
-# the scatter's cell tiles (21³ cells, capacity 3, 2 particles a cell, so
-# slots of rank > 0 carry particles), margin 1 with valid bounds, the
-# largest shared footprint (cN = 8, G and gnorm at margin 1: 12 channels),
-# a ragged 37³ box at capacity 3 (large enough to keep the 8×4×4 tile,
-# 3 slots a thread; the 24³ and 21³ boxes get 2×4×4 tiles), and a gather
-# of 5 channels (the kernel's runtime channel count; the step gathers 3).
+# the option ``problem`` replaces the dimension's problem.  The later cases
+# of each list hold the redesigned kernels: a ragged box against the
+# scatter's cell tiles (2D 37×53, 3D 21³ cells, capacity 3, 2 particles a
+# cell, so slots of rank > 0 carry particles), margin 1 with valid bounds,
+# the largest shared footprint (cN = 8, G and gnorm at margin 1: 2D 11, 3D
+# 12 channels), in 2D a 24² box (36 tiles of 2×8, below MIN_TILES), in 3D a
+# ragged 37³ box at capacity 3 (large enough to keep the 8×4×4 tile, 3
+# slots a thread; the 24³ and 21³ boxes get 2×4×4 tiles), gathers of the
+# gradient alone, at margin 0 and of 5 channels (the step gathers d).
+RAGGED2 = dict(problem=(64, 4, (37, 53), 3, 2))
+SMALL2 = dict(problem=(32, 2, 24, 2, 1))
 RAGGED3 = dict(problem=(32, 4, 21, 3, 2))
 RAGGED3_LARGE = dict(problem=(48, 5, 37, 3, 2))
 KERNEL_CASES = {
@@ -198,9 +205,19 @@ KERNEL_CASES = {
                      ("solve,cN=3,margin=1", 1, False, False, None, 2),
                      ("solve,cN=3,G,margin=1", 1, True, False, None, 3),
                      ("solve,cN=3,gnorm,margin=1", 1, False, True, None, 4),
-                     ("solve,cN=3,G,margin=0,valid_lo/hi", 0, True, False, 1, 5)],
+                     ("solve,cN=3,G,margin=0,valid_lo/hi", 0, True, False, 1, 5),
+                     ("solve,cN=3,G,margin=0,ragged 37x53 x C3", 0, True, False, None, 8,
+                      RAGGED2),
+                     ("solve,cN=3,G,margin=1,valid_lo/hi", 1, True, False, 0, 9),
+                     ("solve,cN=8,G,gnorm,margin=1", 1, True, True, None, 10, dict(cN=8)),
+                     ("solve,cN=3,G,margin=1,small 24^2 box", 1, True, False, None, 26,
+                      SMALL2)],
             gather=[("cN=2+grad,margin=1", 1, True, True, 6),
-                    ("cN=2,margin=1", 1, True, False, 7)]),
+                    ("cN=2,margin=1", 1, True, False, 7),
+                    ("grad,margin=0", 0, False, True, 27),
+                    ("cN=2+grad,margin=0", 0, True, True, 28),
+                    ("cN=2+grad,margin=1,ragged 37x53 x C3", 1, True, True, 29, RAGGED2),
+                    ("cN=5+grad,margin=0", 0, True, True, 30, dict(cN=5))]),
     3: dict(problem=(32, 4, 24, 2, 1), grid="32x32x32", box="24^3 cells x capacity 2",
             scatter=[("solve,cN=4,margin=0", 0, False, False, None, 11),
                      ("solve,cN=4,margin=1", 1, False, False, None, 12),
@@ -730,6 +747,58 @@ def phase_profile(grid, p1, mats, cfg, label="profile"):
              for e in top])
 
 
+# phase ``tiles``: the scatter's candidate cell tiles per box axis, the
+# first the default (``fused_transfer.TILE``)
+TILE_CANDIDATES = {2: [(4, 8), (8, 8), (2, 16), (4, 16), (8, 16), (16, 16)],
+                   3: [(8, 4, 4), (4, 4, 8), (4, 4, 4)]}
+
+
+def phase_tiles(grid, p, cfg):
+    """The main path's two scatter calls (λ solve + mass and momentum; Σ G·∇N
+    beside the zero channel) at its shapes, timed with each candidate tile
+    (median of 10, L2 flushed before each launch); each tile's nodes are
+    checked against the first tile's."""
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+
+    d = grid.dim
+    box, params = cfg.active_box, cfg.lme_params
+    margin = 0 if cfg.rebin_every == 1 else 1
+    C, nc = box.capacity, box.n_cells
+    x_t, lam_t, act_t = (ft.to_channel_leading(a, C, nc)
+                         for a in (p.x, p.lme_lambda, p.active.float()))
+    fN = ft.to_channel_leading(torch.cat([p.mass[:, None], p.mass[:, None] * cfg.dt * p.v], 1),
+                               C, nc)
+    G_t = ft.to_channel_leading((-p.vol0[:, None, None] * p.stress).reshape(-1, d * d), C, nc)
+    dummy = ft.to_channel_leading(torch.zeros_like(p.mass), C, nc)
+    base = (grid, box, params, x_t)
+    _, lam_new, _ = ft.fused_scatter(*base, lam_t, act_t, fN, solve=True, margin=margin)
+    calls = dict(
+        solve=(lambda: ft.fused_scatter(*base, lam_t, act_t, fN, solve=True, margin=margin),
+               TOL_N),
+        G=(lambda: ft.fused_scatter(*base, lam_new, act_t, dummy, G_t=G_t, solve=False,
+                                    margin=margin), TOL_GRAD))
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=p.x.device)
+    default, rows, first = ft.TILE[d], [], {}
+    try:
+        for tile in TILE_CANDIDATES[d]:
+            ft.TILE[d] = tile
+            ft._tile_plan_of.cache_clear()
+            plan = ft.tile_plan(tuple(box.cdims), ft._geom(grid, params, margin).offsets, d + 1)
+            row = dict(tile=plan.tile, tiles=int(np.prod(plan.counts)))
+            for key, (fn, tol) in calls.items():
+                nodes = fn()[0]
+                if key in first:
+                    compare(f"tiles{_suffix(d)}:{tile}:{key}", nodes, first[key], **tol)
+                else:
+                    first[key] = nodes
+                row[f"{key}_ms"] = cuda_ms(fn, 10, flush)
+            rows.append(row)
+    finally:
+        ft.TILE[d] = default
+        ft._tile_plan_of.cache_clear()
+    say(phase="tiles" + _suffix(d), margin=margin, rows=rows)
+
+
 def phase_probes(device, reps=20):
     """The lane-roll probes (scripts/probe_roll.py, probe_roll2.py): P1 ten
     rolls checked exactly against torch.roll summed in the same order; P2
@@ -831,10 +900,13 @@ def main():
         sfx = _suffix(dim)
         if "kernels" + sfx in phases:
             phase_kernels(device, dim)
-        if phases & {name + sfx for name in ("main_path", "profile", "parity", "roofline")}:
+        if phases & {name + sfx
+                      for name in ("main_path", "profile", "parity", "roofline", "tiles")}:
             grid, p0, p1, mats, cfg, h, counts = phase_main_path(device, dim)
             if "profile" + sfx in phases:
                 phase_profile(grid, p1, mats, cfg, label="profile" + sfx)
+            if "tiles" + sfx in phases:
+                phase_tiles(grid, p1, cfg)
             if "parity" + sfx in phases:
                 phase_parity(grid, p0, mats, cfg, h)
             if "roofline" + sfx in phases:

@@ -20,52 +20,32 @@ Both dispatch on ``grid.dim``: 2D grids go to ``csrc/lme_transfer2d.cu``,
 Slot arrays are capacity-major (ops/windowed.py) and passed channel-leading
 as (ch, C, n_cells); coordinate channel c is the position along grid axis c.
 
-Source notes for the 2D kernels (csrc/lme_transfer2d.cu):
-
-``lme_scatter2d`` replaces the TPU kernel ``pallas_transfer.py::
-fused_scatter`` (body ``_make_scatter_kernel``).  The function's bound on
-the H100 is a few microseconds, its bytes (each slot channel and node once,
-tens of MB) and its operations about level; the kernel spends its time on
-operations, because it recomputes instead of storing: it sweeps a 32- or
-60-offset window several times per slot, testing every offset and taking
-one ``exp`` per valid one each time, and ends in one f32 atomic add per
-edge and channel.  One thread per slot over the channel-leading layout
-gives coalesced loads and, per window offset, neighbouring node addresses
-across a warp; the moments of a converged Newton iteration are reused for
-the basis, so a warm-started slot sweeps the window three times in all.
-
-``lme_gather2d`` replaces ``pallas_transfer.py::fused_gather`` (body
-``_make_gather_kernel``).  The same balance: three passes over the window per
-slot (max, moments, contraction) where the function needs one evaluation; the node
-fields (a few MB) are read through L2 with read-only loads, no atomics,
-the same result from run to run.
-
-``lme_scatter3d`` and ``lme_gather3d`` (csrc/lme_transfer3d.cu) replace
-the 3D TPU kernels of ``pallas_transfer3d.py``: ``fused_scatter3`` (rows
-layout, body ``_make_scatter_kernel3``) and ``_scatter_pallas3m``
-(merged-lane layout, body ``_make_scatter_kernel3m``) for the scatter,
-``fused_gather3`` (body ``_make_gather_kernel3``) and ``_gather_pallas3m``
-(body ``_make_gather_kernel3m``) for the gather.  The two TPU layouts are
-lane arrangements chosen by VMEM size; one thread per slot serves both.
-The window is larger than in 2D (160 offsets at margin 0, 432 at margin 1,
-γ=3; 88 valid edges an active slot at 96³) and the Newton solve is 3×3, so
-the 2D design's repeated sweeps and per-edge global atomics cost more (the
-atomics a third to a half of a 3D scatter); the 3D kernels are designed
-against both:
+The kernels (``csrc/lme_transfer2d.cu``: ``lme_scatter2d``,
+``lme_gather2d``; ``csrc/lme_transfer3d.cu``: ``lme_scatter3d``,
+``lme_gather3d``) replace the TPU kernels of ``pallas_transfer.py``
+(``fused_scatter``, body ``_make_scatter_kernel``; ``fused_gather``, body
+``_make_gather_kernel``) and of ``pallas_transfer3d.py`` (``fused_scatter3``
+and ``_scatter_pallas3m``, ``fused_gather3`` and ``_gather_pallas3m``: two
+lane arrangements of each, chosen by VMEM size, that one thread per slot
+serves on the card).  Each call recomputes the basis in registers, so its
+time goes to operations, and the first designs lost it to repeated sweeps
+over the window and to one global f32 atomic per edge and channel.  Both
+dimensions now share one design:
 
 * each evaluation of the moments is one sweep over the window, against a
   running max of f (sums rescaled when it rises): a Newton iteration is one
   sweep, and the gather is one sweep in all — at fixed λ it sums
   e·g_A and e·g_A⊗l_A beside the moments and applies J⁻¹ and r̄ = S1/Z once
   per slot (∇N_A = −N_A·J⁻¹(l_A − r̄) summed);
-* the window is walked as rows (o0, o1 fixed), each cut per slot to the o2
-  range that can meet the support radius: only offsets the exact test
-  r² ≤ R² rejects are skipped, so nnz stays equal to the plain version's;
-* a scatter block walks a tile of box cells (:func:`tile_plan`, 8×4×4,
-  thinner on a small box; every capacity rank) and adds each edge into
-  the tile's node footprint in shared memory, then flushes each non-zero
-  footprint entry with one global atomic instead of one per edge and
-  channel.
+* the window is walked as rows (all axes but the last fixed), taken
+  nearest-first from the cell centre, each cut per slot to the range along
+  the last axis that can meet the support radius: only offsets the exact
+  test r² ≤ R² rejects are skipped, so nnz stays equal to the plain
+  version's;
+* a scatter block walks a tile of box cells (:func:`tile_plan`; every
+  capacity rank) and adds each edge into the tile's node footprint in
+  shared memory, then flushes each non-zero footprint entry with one global
+  atomic instead of one per edge and channel.
 
 Each wrapper takes the plain PyTorch version below only for tensors that
 lie on the CPU.  For a CUDA tensor it launches the kernel or raises.
@@ -91,10 +71,10 @@ Tensor = torch.Tensor
 MAX_CN = 8  # N-weighted channels per call (csrc: MAX_CN)
 # window offsets per call, by dimension (csrc: MAX_PAIRS, MAX_TRIPS)
 MAX_OFFSETS = {2: 192, 3: 512}
-# cells of a 3D scatter tile per box axis, the fewest tiles a box is cut into
-# (two blocks for each of an H100's 132 SMs), and the shared memory a block
-# may use on an H100 (the one check of it is tile_plan's)
-TILE = (8, 4, 4)
+# cells of a scatter tile per box axis, by dimension; the fewest tiles a box
+# is cut into (two blocks for each of an H100's 132 SMs); and the shared
+# memory a block may use on an H100 (the one check of it is tile_plan's)
+TILE = {2: (4, 8), 3: (8, 4, 4)}
 MIN_TILES = 2 * 132
 MAX_SHARED_BYTES = 232448
 _SOURCES = {2: "lme_transfer2d", 3: "lme_transfer3d"}
@@ -142,12 +122,11 @@ class _Geom:
             if sum(_md(v) ** 2 for v in o) <= rm * rm
         ]
         # the kernels' window argument: a host array of d-tuples of ints.  The
-        # 3D kernels walk it as rows (o0, o1 fixed, o2 rising), taken
-        # nearest-first from the cell centre so that the running max of f
-        # over a slot's window settles in its first rows
-        order = self.offsets
-        if dim == 3:
-            order = sorted(order, key=lambda o: ((o[0] - 0.5) ** 2 + (o[1] - 0.5) ** 2, o))
+        # kernels walk it as rows (all axes but the last fixed, the last
+        # rising), taken nearest-first from the cell centre so that the
+        # running max of f over a slot's window settles in its first rows
+        order = sorted(self.offsets,
+                       key=lambda o: (sum((v - 0.5) ** 2 for v in o[:-1]), o))
         self.offs_c = (ctypes.c_int * (dim * len(order)))(*[v for o in order for v in o])
 
 
@@ -163,7 +142,8 @@ def _geom(grid: Grid, params: lme_mod.LMEParams, margin: int) -> _Geom:
 
 
 class TilePlan(NamedTuple):
-    """The cell tiles of ``lme_scatter3d``: one block per tile."""
+    """The cell tiles of ``lme_scatter2d`` / ``lme_scatter3d``: one block per
+    tile."""
 
     tile: tuple       # cells per box axis
     footprint: tuple  # nodes per axis: tile + the window's offset span
@@ -173,24 +153,28 @@ class TilePlan(NamedTuple):
 
 
 def tile_plan(cdims, offsets, cout: int) -> TilePlan:
-    """Tile plan of ``lme_scatter3d`` for a box of ``cdims`` cells, a window
-    of ``offsets`` and ``cout`` output channels: ``TILE`` cut to the box,
-    its axis 0 halved (down to 2 cells) while the box has fewer than
-    ``MIN_TILES`` tiles.  A block's threads walk its slots in series, so a
-    small box in large tiles runs a few long blocks: on an H100, a 24³-cell
-    box in 108 tiles of 8×4×4 took 1.5-2.0× the time of one block per 128
-    slots, in 432 tiles of 2×4×4 about the same (PERF.md).  Raises ValueError when the footprint's sums
-    exceed the shared memory of a block; the plan is never shrunk to fit."""
-    t = [min(a, c) for a, c in zip(TILE, cdims)]
+    """Tile plan of the scatter kernel for a box of ``cdims`` cells (2D or
+    3D), a window of ``offsets`` and ``cout`` output channels: ``TILE`` of
+    the dimension cut to the box, its axis 0 halved (down to 2 cells) while
+    the box has fewer than ``MIN_TILES`` tiles.  A block's threads walk its
+    slots in series, so a small box in large tiles runs a few long blocks:
+    on an H100, a 24³-cell box in 108 tiles of 8×4×4 took 1.5-2.0× the time
+    of one block per 128 slots, in 432 tiles of 2×4×4 about the same; the
+    2D main path's 260²-cell box at capacity 6 scatters 1.3-1.5× faster in
+    2,145 tiles of 4×8 than in 561 of 8×16 (PERF.md).  Raises ValueError
+    when the footprint's sums exceed the shared memory of a block; the plan
+    is never shrunk to fit."""
+    d = len(cdims)
+    t = [min(a, c) for a, c in zip(TILE[d], cdims)]
     while t[0] > 2 and int(np.prod([-(-c // a) for c, a in zip(cdims, t)])) < MIN_TILES:
         t[0] //= 2
-    lo = tuple(min(o[ax] for o in offsets) for ax in range(3))
-    hi = tuple(max(o[ax] for o in offsets) for ax in range(3))
-    foot = tuple(t[ax] + hi[ax] - lo[ax] for ax in range(3))
+    lo = tuple(min(o[ax] for o in offsets) for ax in range(d))
+    hi = tuple(max(o[ax] for o in offsets) for ax in range(d))
+    foot = tuple(t[ax] + hi[ax] - lo[ax] for ax in range(d))
     shared = 4 * cout * int(np.prod(foot))
     if shared > MAX_SHARED_BYTES:
         raise ValueError(
-            f"lme_scatter3d tile {tuple(t)} with a {foot} node footprint and {cout} "
+            f"lme_scatter{d}d tile {tuple(t)} with a {foot} node footprint and {cout} "
             f"channels needs {shared} bytes of shared memory, above the "
             f"{MAX_SHARED_BYTES} a block may use"
         )
@@ -307,7 +291,7 @@ def _library(dim: int):
         # c_void_p for every pointer and the stream: an unset argtype would
         # pass them as 32-bit ints and cut the pointers
         geom = _geom_argtypes(dim)
-        plan = [ctypes.POINTER(ctypes.c_int)] if dim == 3 else []
+        plan = [ctypes.POINTER(ctypes.c_int)]
         scatter.argtypes = [_P] * 8 + geom + plan + [_I] * 5 + [_F, _P]
         scatter.restype = _I
         gather.argtypes = [_P] * 7 + geom + [_I, _P]
@@ -389,10 +373,8 @@ def scatter_cuda(grid, box, params, x_t, lam_t, act_t, fN_t, G_t=None, solve=Tru
     nodes = torch.zeros((grid.n_nodes, cout), dtype=torch.float32, device=dev)
     lam_out = torch.empty_like(lam_t)
     cnt = torch.zeros((2,), dtype=torch.int32, device=dev)
-    plan = []
-    if d == 3:
-        tp = _tile_plan_of(tuple(box.cdims), g, cout)
-        plan = [(ctypes.c_int * 9)(*tp.tile, *tp.footprint, *tp.lo)]
+    tp = _tile_plan_of(tuple(box.cdims), g, cout)
+    plan = (ctypes.c_int * (3 * d))(*tp.tile, *tp.footprint, *tp.lo)
     name = f"lme_scatter{d}d"
     fn = getattr(_library(d), name)
     with torch.cuda.device(dev):
@@ -400,7 +382,7 @@ def scatter_cuda(grid, box, params, x_t, lam_t, act_t, fN_t, G_t=None, solve=Tru
             x_t.data_ptr(), lam_t.data_ptr(), act_t.data_ptr(), fN_t.data_ptr(),
             None if G_t is None else G_t.data_ptr(),
             nodes.data_ptr(), lam_out.data_ptr(), cnt.data_ptr(),
-            *_geom_args(g, grid, box), *plan,
+            *_geom_args(g, grid, box), plan,
             cN, int(G_t is not None), int(gnorm), int(solve), params.max_iter, g.tol2,
             torch.cuda.current_stream(dev).cuda_stream,
         )

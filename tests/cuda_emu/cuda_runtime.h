@@ -1,12 +1,13 @@
-// CPU emulation of the CUDA features lme_transfer3d.cu uses: one std::thread
-// per CUDA thread, std::barrier for __syncthreads and warp reductions.
+// CPU emulation of the CUDA features lme_transfer2d.cu and lme_transfer3d.cu
+// use: one std::thread per CUDA thread, std::barrier for __syncthreads and
+// warp reductions.
 //
-// It serves that one source and no other.  The test rewrites the source
+// It serves those two sources and no other.  The tests rewrite a source
 // with regexes (a launch <<<...>>> whose arguments hold no '>', one
 // `extern __shared__` array), and every stand-in here copies one feature
-// faithfully.  When that source comes to use a feature this header cannot
-// copy faithfully (shuffles, cp.async, wgmma, ...), drop the emulated test
-// rather than grow this header.
+// faithfully.  When a source comes to use a feature this header cannot copy
+// faithfully (shuffles, cp.async, wgmma, ...), drop its emulated test rather
+// than grow this header.
 #pragma once
 #include <math.h>
 #include <atomic>
@@ -31,7 +32,11 @@ template <class T> cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) 
 inline cudaError_t cudaGetLastError() { return 0; }
 inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline float __ldg(const float* p) { return *p; }
+inline float2 __ldg(const float2* p) { return *p; }
 inline int __float2int_ru(float x) { return (int)ceilf(x); }
 inline int __float2int_rd(float x) { return (int)floorf(x); }
 using std::max;

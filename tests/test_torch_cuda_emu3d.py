@@ -1,37 +1,25 @@
 """The 3D CUDA kernels' own source (csrc/lme_transfer3d.cu), run on the CPU
-against the plain versions.  The source is compiled by the host C++ compiler
-with ``tests/cuda_emu/cuda_runtime.h``, which emulates what the kernels use
-of CUDA: one std::thread per CUDA thread, std::barrier for
-``__syncthreads`` and the warp reductions, ``std::atomic_ref`` for atomics,
-dynamic shared memory per block.  That holds the kernels' index arithmetic
-(cell tiles, footprints, flush, slot layout) and their algebra (one-sweep
-moments, the gather's J⁻¹ applied once) to the plain versions on every test
-run; speed, registers and the GPU compiler are the chip's to check
-(``chip_smoke.py``).  The emulation serves this one source: when it comes to
-use a CUDA feature the header cannot copy faithfully, this test goes."""
-
-import contextlib
-import ctypes
-import hashlib
-import os
-import re
-import shutil
-import subprocess
-import types
+against the plain versions: compiled by the host C++ compiler with the
+emulation header (``tests/_cuda_emu.py``), which holds the kernels' index
+arithmetic (cell tiles, footprints, flush, slot layout) and their algebra
+(one-sweep moments, the gather's J⁻¹ applied once) to the plain versions on
+every test run; speed, registers and the GPU compiler are the chip's to
+check (``chip_smoke.py``).  When the source comes to use a CUDA feature the
+header cannot copy faithfully, this test goes."""
 
 import numpy as np
 import pytest
 import torch
 
+from _cuda_emu import emulated_kernels
 from nlpartsol_tpu_torch.formulations.explicit import to_slot_layout
-from nlpartsol_tpu_torch.ops import cuda_build, windowed
+from nlpartsol_tpu_torch.ops import windowed
 from nlpartsol_tpu_torch.ops import fused_transfer as ft
 from nlpartsol_tpu_torch.shapefun import lme
 from nlpartsol_tpu_torch.types import Grid, make_particles
 
 torch.set_num_threads(1)
 
-EMU_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
 PARAMS = lme.LMEParams(gamma=3.0)
 # chip_smoke.py's tolerances between a kernel and its plain version
 TOL_N = dict(rtol=2e-5, atol=1e-6)
@@ -39,54 +27,12 @@ TOL_GRAD = dict(rtol=3e-4, atol=3e-5)
 TOL_LAM = dict(rtol=1e-3, atol=1e-4)  # atol × 1/h
 
 
-def _emulated_source():
-    src = open(os.path.join(cuda_build.CSRC_DIR, "lme_transfer3d.cu")).read()
-    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];", r"EMU_SHARED(\1, \2);", src)
-    # kernel<<<grid, block, smem, stream>>>(args) -> emu_launch(kernel, grid, ..., args)
-    return re.sub(r"(\w+(?:<[^<>]*>)?)<<<([^>]*)>>>\(", r"emu_launch(\1, \2, ", src)
-
-
 @pytest.fixture(scope="module")
-def emulated(monkeypatch_module):
-    """The kernels' library built for the CPU, loaded where the wrappers
-    look for the CUDA one; CPU tensors then go to it through
-    ``scatter_cuda`` / ``gather_cuda``."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler to build the emulated kernels")
-    src = _emulated_source()
-    header = open(os.path.join(EMU_DIR, "cuda_runtime.h")).read()
-    digest = hashlib.sha256((src + header).encode()).hexdigest()[:16]
-    out = os.path.join(cuda_build.BUILD_DIR, "emu")
-    os.makedirs(out, exist_ok=True)
-    lib = os.path.join(out, f"liblme_transfer3d_emu_{digest}.so")
-    if not os.path.exists(lib):
-        cpp = os.path.join(out, f"lme_transfer3d_emu_{digest}.cpp")
-        with open(cpp, "w") as fh:
-            fh.write(src)
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
-             "-I", EMU_DIR, "-o", tmp, cpp], capture_output=True, text=True, timeout=300)
-        assert proc.returncode == 0, proc.stderr[-3000:]
-        os.replace(tmp, lib)
-    monkeypatch_module.setitem(cuda_build._loaded, "lme_transfer3d", ctypes.CDLL(lib))
-    monkeypatch_module.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch_module.setattr(torch.cuda, "current_stream",
-                               lambda d=None: types.SimpleNamespace(cuda_stream=None))
-    # the small box keeps the main paths' 8×4×4 tile (several slots a
-    # thread) instead of the thinner tiles a small box gets on the card
-    monkeypatch_module.setattr(ft, "MIN_TILES", 1)
-    ft._tile_plan_of.cache_clear()
-    yield
-    ft._tile_plan_of.cache_clear()
-
-
-@pytest.fixture(scope="module")
-def monkeypatch_module():
-    mp = pytest.MonkeyPatch()
-    yield mp
-    mp.undo()
+def emulated():
+    """The kernels' library built for the CPU (tests/_cuda_emu.py); the
+    small box keeps the main paths' 8×4×4 tile."""
+    with emulated_kernels("lme_transfer3d"):
+        yield
 
 
 def _problem(seed, margin, capacity=2, per_cell=1):

@@ -58,11 +58,10 @@ def test_every_port_source_is_scanned_and_none_uses_torch_compile():
 
 
 def test_every_port_test_file_holds_at_most_8_tests():
-    """pytest-xdist hands test files out largest first: a port file of 9 or
-    more tests would start before tests/test_pallas_transfer3d.py, the
-    suite's longest file, and push the whole run past its time limit
-    (ROADMAP.md, "What this container allows").  Counted as pytest collects
-    them, parametrised cases included."""
+    """Port test files stay small: the whole suite runs close to its time
+    limit, cut while tests/test_pallas_transfer3d.py, its longest file, is
+    still running (ROADMAP.md, "What this container allows").  Counted as
+    pytest collects them, parametrised cases included."""
     files = sorted((ROOT / "tests").glob("test_torch_*.py"))
     out = subprocess.run(
         [sys.executable, "-m", "pytest", "--collect-only", "-q", "-p", "no:cacheprovider",
