@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``nlpartsol_tpu_torch/csrc`` (one ``nvcc`` per
-source, all started together) and drives the port's two paths — the 2D and
-the 3D explicit LME step on the fused kernels — on the card.  Each phase
+source, all started together) and drives the port's four paths — the 2D and
+the 3D explicit LME step, and the 2D and 3D implicit Newmark step, on the
+fused kernels — on the card.  Each phase
 prints one JSON line; any failure ends the run with a non-zero exit code.
 Without a CUDA device the script fails at once.
 
@@ -30,7 +31,22 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
   roofline   each kernel at the main path's shapes against its plain
              version: time, plain time, bound; in 3D also at margin 1
              (rows ``…@margin1``, on no path: the window a re-bin period
-             k > 1 would need)
+             k > 1 would need); with ``implicit`` also the implicit step's
+             four call variants at its shapes (rows ``…@implicit``)
+  implicit   scripts/bench_implicit.py's step on the fused kernels: 2D
+             256² nodes, 65,536 particles, capacity-6 box of 132² cells;
+             3D (``implicit3d``) the 96³ problem of main_path3d; dt = 2h/c,
+             Newton-CG (Jacobi, cg_maxiter 60, newton_maxiter 10,
+             Eisenstat-Walker), local re-bin every step; 1 warm-up + 5
+             timed steps (3D 3), every step converged and nothing lost,
+             launches held to the formula of formulations/implicit.py, host
+             syncs per step, one profiled step (device busy share, share in
+             the four kernels)
+  implicit_parity
+             2 implicit steps from the same state through the fused kernels
+             and the port's windowed engine on the card, matched by pid:
+             rel_dx < 1e-3, rel_dv < 1e-2, equal Newton iterations (3D:
+             ``implicit_parity3d``)
   probes     the lane-roll probes: a roll sum checked exactly against
              torch.roll, and timed beside its multiply-add twin at 4 shapes
   large      (if time allows) the fused path alone at the bigger size: 3D
@@ -194,7 +210,10 @@ def _slot_problem(seed, dim, n_side, lo_cell, n_cell, capacity, per_cell, drift,
 # 12 channels), in 2D a 24² box (36 tiles of 2×8, below MIN_TILES), in 3D a
 # ragged 37³ box at capacity 3 (large enough to keep the 8×4×4 tile, 3
 # slots a thread; the 24³ and 21³ boxes get 2×4×4 tiles), gathers of the
-# gradient alone, at margin 0 and of 5 channels (the step gathers d).
+# gradient alone, at margin 0 and of 5 channels (the step gathers d).  The
+# last cases are the implicit step's wide calls at margin 0: its first
+# scatter with gnorm (2D 6 channels, 8 with tractions; 3D 8 and 11) and its
+# last N-gather (2D 6, 3D 9 channels).
 RAGGED2 = dict(problem=(64, 4, (37, 53), 3, 2))
 SMALL2 = dict(problem=(32, 2, 24, 2, 1))
 RAGGED3 = dict(problem=(32, 4, 21, 3, 2))
@@ -211,13 +230,18 @@ KERNEL_CASES = {
                      ("solve,cN=3,G,margin=1,valid_lo/hi", 1, True, False, 0, 9),
                      ("solve,cN=8,G,gnorm,margin=1", 1, True, True, None, 10, dict(cN=8)),
                      ("solve,cN=3,G,margin=1,small 24^2 box", 1, True, False, None, 26,
-                      SMALL2)],
+                      SMALL2),
+                     ("solve,cN=6,gnorm,margin=0 (implicit)", 0, False, True, None, 31,
+                      dict(cN=6)),
+                     ("solve,cN=8,gnorm,margin=0 (implicit, tractions)", 0, False, True, None,
+                      32, dict(cN=8))],
             gather=[("cN=2+grad,margin=1", 1, True, True, 6),
                     ("cN=2,margin=1", 1, True, False, 7),
                     ("grad,margin=0", 0, False, True, 27),
                     ("cN=2+grad,margin=0", 0, True, True, 28),
                     ("cN=2+grad,margin=1,ragged 37x53 x C3", 1, True, True, 29, RAGGED2),
-                    ("cN=5+grad,margin=0", 0, True, True, 30, dict(cN=5))]),
+                    ("cN=5+grad,margin=0", 0, True, True, 30, dict(cN=5)),
+                    ("cN=6,margin=0 (implicit)", 0, True, False, 33, dict(cN=6))]),
     3: dict(problem=(32, 4, 24, 2, 1), grid="32x32x32", box="24^3 cells x capacity 2",
             scatter=[("solve,cN=4,margin=0", 0, False, False, None, 11),
                      ("solve,cN=4,margin=1", 1, False, False, None, 12),
@@ -229,13 +253,18 @@ KERNEL_CASES = {
                      ("solve,cN=4,G,margin=1,valid_lo/hi", 1, True, False, 0, 21),
                      ("solve,cN=8,G,gnorm,margin=1", 1, True, True, None, 22, dict(cN=8)),
                      ("solve,cN=4,G,margin=1,ragged 37^3 x C3", 1, True, False, None, 25,
-                      RAGGED3_LARGE)],
+                      RAGGED3_LARGE),
+                     ("solve,cN=8,gnorm,margin=0 (implicit)", 0, False, True, None, 34,
+                      dict(cN=8)),
+                     ("solve,cN=11,gnorm,margin=0 (implicit, tractions)", 0, False, True, None,
+                      35, dict(cN=11))],
             gather=[("cN=3+grad,margin=1", 1, True, True, 16),
                     ("cN=3,margin=1", 1, True, False, 17),
                     ("grad,margin=0", 0, False, True, 18),
                     ("cN=3+grad,margin=0", 0, True, True, 19),
                     ("cN=3+grad,margin=1,ragged 21^3 x C3", 1, True, True, 23, RAGGED3),
-                    ("cN=5+grad,margin=0", 0, True, True, 24, dict(cN=5))]),
+                    ("cN=5+grad,margin=0", 0, True, True, 24, dict(cN=5)),
+                    ("cN=9,margin=0 (implicit)", 0, True, False, 36, dict(cN=9))]),
 }
 
 
@@ -529,10 +558,11 @@ def phase_parity(grid, p0, mats, cfg, h):
 # + 6 add; Z alone 1).  Once per valid edge: a shape value N 2, a gradient
 # (2D 10; 3D 21: l − r 3, J⁻¹·a 15, ×(−N) 3), one N-weighted channel 2
 # (multiply + add), the G product with its adds (2D 8, 3D 18), a
-# gradient-weighted gather (2D 8, 3D 18: 9 mul + 9 add).
+# gradient-weighted gather (2D 8, 3D 18: 9 mul + 9 add), a gnorm term
+# s·|∇N|² with its add (2D 5, 3D 7).
 OPS = {
-    2: dict(test=11, f=5, mom=14, n=2, dn=10, ch=2, g=8, grad=8),
-    3: dict(test=15, f=7, mom=19, n=2, dn=21, ch=2, g=18, grad=18),
+    2: dict(test=11, f=5, mom=14, n=2, dn=10, ch=2, g=8, grad=8, gn=5),
+    3: dict(test=15, f=7, mom=19, n=2, dn=21, ch=2, g=18, grad=18, gn=7),
 }
 # the TPU kernels each CUDA kernel replaces: (file:line of the pallas_call,
 # and of the other layout's call for 3D)
@@ -571,6 +601,42 @@ def phase_roofline(grid, p1, mats, cfg, counts):
     return rows
 
 
+def _kernel_row(rows, name, key, d, fn_kernel, fn_plain, checks, n_bytes, n_ops, launches,
+                flush, **extra):
+    """Check one kernel call against its plain version, time both (median of
+    10 and 2 launches, L2 flushed before each) and append its row of the
+    ``"kernels"`` line; ``launches`` is a number, or None for the count of
+    this row's own timed run.  Returns the kernel's output."""
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+
+    got, ref = fn_kernel(), fn_plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for label, pick, tol in checks:
+        err = max(err, compare(f"{name}:{label}", pick(got), pick(ref), **tol)["max_abs"])
+    del ref
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    replaces, also = REPLACES[key.split(":")[0]]
+    ft.reset_launch_counts()
+    ms = cuda_ms(fn_kernel, 10, flush)
+    rows.append(dict(
+        name=name, route="cuda", source=f"nlpartsol_tpu_torch/csrc/lme_transfer{d}d.cu",
+        replaces=replaces, **({"also_replaces": also} if also else {}),
+        launches=launches if launches is not None else ft.launch_counts[key],
+        max_abs_err=err, ms=ms, plain_ms=cuda_ms(fn_plain, 2, flush),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        bytes=n_bytes, operations=n_ops, **extra))
+    return got
+
+
+def _slot_bytes(p, box, n_nodes):
+    """Bytes of one float32 channel over the active slots, the idle slots
+    (the function needs only ``active`` of an idle slot, and in the scatter
+    its λ, which passes through), all slots, and all nodes."""
+    n_active = int(p.active.sum())
+    return 4 * n_active, 4 * (box.n_slots - n_active), 4 * box.n_slots, 4 * n_nodes
+
+
 def _roofline_rows(grid, p, cfg, counts, margin, rows):
     """The four calls of a step at ``margin``, appended to ``rows``;
     ``counts`` are the main path's launches, or None off the path."""
@@ -579,8 +645,7 @@ def _roofline_rows(grid, p, cfg, counts, margin, rows):
     d = grid.dim
     ops_of = OPS[d]
     box, params = cfg.active_box, cfg.lme_params
-    C, nc, ns = box.capacity, box.n_cells, box.n_slots
-    n_nodes = grid.n_nodes
+    C, nc = box.capacity, box.n_cells
     dt = cfg.dt
     x_t = ft.to_channel_leading(p.x, C, nc)
     lam_t = ft.to_channel_leading(p.lme_lambda, C, nc)
@@ -591,11 +656,7 @@ def _roofline_rows(grid, p, cfg, counts, margin, rows):
     base = (grid, box, params, x_t)
     n_offs = len(ft._geom(grid, params, margin).offsets)
     n_active = int(p.active.sum())
-    n_idle = ns - n_active
-    # bytes of one float32 channel over the active slots, the idle slots (the
-    # function needs only ``active`` of an idle slot, and in the scatter its λ,
-    # which passes through), all slots, and all nodes
-    b_act, b_idle, b_all, b_nodes = 4 * n_active, 4 * n_idle, 4 * ns, 4 * n_nodes
+    b_act, b_idle, b_all, b_nodes = _slot_bytes(p, box, grid.n_nodes)
     tests = n_active * n_offs * ops_of["test"]
     per_eval = ops_of["f"] + 1 + ops_of["mom"]
     # 1 GiB: rewriting it keeps the card busy longer than the host needs to
@@ -603,32 +664,14 @@ def _roofline_rows(grid, p, cfg, counts, margin, rows):
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=p.x.device)
     scatter, gather = f"lme_scatter{d}d", f"lme_gather{d}d"
     tag = "" if counts is not None else f"@margin{margin}"
+    off_path = {}
+    if counts is None:
+        off_path = dict(path=f"none: the {d}D main path runs margin 0 (k = 1); "
+                             "launches are those of this row's timed run")
 
     def row(key, fn_kernel, fn_plain, checks, n_bytes, n_ops):
-        name = key + tag
-        got, ref = fn_kernel(), fn_plain()
-        torch.cuda.synchronize()
-        err = 0.0
-        for label, pick, tol in checks:
-            err = max(err, compare(f"{name}:{label}", pick(got), pick(ref), **tol)["max_abs"])
-        del ref
-        bound_ms, bound_by = _bound(n_bytes, n_ops)
-        replaces, also = REPLACES[key.split(":")[0]]
-        ft.reset_launch_counts()
-        ms = cuda_ms(fn_kernel, 10, flush)
-        off_path = {}
-        if counts is None:
-            off_path = dict(path=f"none: the {d}D main path runs margin 0 (k = 1); "
-                                 "launches are those of this row's timed run")
-        rows.append(dict(
-            name=name, route="cuda",
-            source=f"nlpartsol_tpu_torch/csrc/lme_transfer{d}d.cu",
-            replaces=replaces, **({"also_replaces": also} if also else {}),
-            launches=counts[key] if counts is not None else ft.launch_counts[key],
-            max_abs_err=err, ms=ms, plain_ms=cuda_ms(fn_plain, 2, flush),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            bytes=n_bytes, operations=n_ops, **off_path))
-        return got
+        return _kernel_row(rows, key + tag, key, d, fn_kernel, fn_plain, checks, n_bytes, n_ops,
+                           counts[key] if counts is not None else None, flush, **off_path)
 
     # per slot: x and λ in, λ out (d each), active 1
     slot_io = 3 * d + 1
@@ -680,6 +723,268 @@ def _roofline_rows(grid, p, cfg, counts, margin, rows):
         (2 * d + 1) * b_act + b_idle + d * b_nodes + d * b_all, tests + nnz * per_edge)
     return dict(margin=margin, window_offsets=n_offs, nnz=nnz,
                 newton_iterations_per_active_slot=iters / n_active)
+
+
+# The implicit Newmark step (scripts/bench_implicit.py's configuration): the
+# problems of ``PROBLEMS`` at its width — 2D bench.build_problem(256, ppc=2),
+# 65,536 particles in a capacity-6 box of 132² cells; 3D scripts/bench3d.py's
+# 96³, 110,592 particles, capacity 2, 52³ cells — with dt = 2h/c, Jacobi-
+# preconditioned Newton-CG (cg_maxiter 60, newton_maxiter 10, Eisenstat-
+# Walker forcing) on the fused kernels and a local re-bin after every step;
+# warm-up and timed steps, and the steps of the parity leg.
+IMPLICIT = {
+    2: dict(n_side=256, warm=1, steps=5, parity_steps=2),
+    3: dict(n_side=96, warm=1, steps=3, parity_steps=2),
+}
+
+
+def build_implicit(dim, device):
+    from nlpartsol_tpu_torch.formulations.implicit import ImplicitConfig
+
+    spec = IMPLICIT[dim]
+    grid, p, mats, cfg_e, h = build_problem(dim, spec["n_side"], device)
+    cfg = ImplicitConfig(
+        dt=2.0 * h / np.sqrt(1e7 / 1000.0), lme_params=cfg_e.lme_params, kinds=cfg_e.kinds,
+        active_box=cfg_e.active_box, cg_maxiter=60, newton_maxiter=10, forcing="ew",
+        transfer="fused")
+    return grid, p, mats, cfg, h
+
+
+def _implicit_steps(label, p, grid, mats, cfg, steps, timed=None):
+    """``steps`` implicit steps; each must converge and lose nothing.
+    Returns the particles and the per-step (newton, cg, nnz, residual) and, with
+    ``timed`` (a list), each step's host time in ms (synchronised)."""
+    from nlpartsol_tpu_torch.formulations.implicit import implicit_step
+
+    body = torch.zeros(grid.dim, dtype=p.x.dtype, device=p.x.device)
+    hist = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, dg = implicit_step(p, grid, mats, cfg, body)
+        torch.cuda.synchronize()
+        if timed is not None:
+            timed.append(1e3 * (time.perf_counter() - t0))
+        if not bool(dg["converged"]):
+            raise PhaseError(f"{label}: step {i} did not converge "
+                             f"(residual {float(dg['newton_residual'])})")
+        _check_state(label, p, dict(lost=dg["lost"]))
+        hist.append((dg["newton_iters"], dg["cg_iters"], int(dg["nnz"]),
+                     float(dg["newton_residual"])))
+    return p, hist
+
+
+def _residual_costs(p, grid, mats, cfg, reps=10):
+    """Host ms of one residual of the Newton loop and of one J·v (forward
+    mode, primal and tangent), each synchronised, and ‖R₀‖, at the step's
+    first iterate: the residual is taken from ``solvers.newton_krylov``'s
+    arguments in a step that runs no Newton iteration."""
+    from nlpartsol_tpu_torch.formulations.implicit import implicit_step
+    from nlpartsol_tpu_torch.ops import solvers
+
+    seen, real = {}, solvers.newton_krylov
+
+    def spy(residual, x0, **kw):
+        seen.update(residual=residual, x0=x0)
+        return real(residual, x0, **kw)
+
+    solvers.newton_krylov = spy
+    try:
+        implicit_step(p, grid, mats, cfg.replace(newton_maxiter=0),
+                      torch.zeros(grid.dim, dtype=p.x.dtype, device=p.x.device))
+    finally:
+        solvers.newton_krylov = real
+    R, x0 = seen["residual"], seen["x0"]
+    v = torch.full_like(x0, 1e-6)
+
+    def host_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    return dict(residual_ms=host_ms(lambda: R(x0)), jv_ms=host_ms(lambda: solvers.jvp(R, x0, v)),
+                r0_norm=float(torch.linalg.vector_norm(R(x0))))
+
+
+def phase_implicit(device, dim):
+    """The implicit step on the fused kernels: warm-up, then timed steps with
+    the launch counts and host syncs set to 0 just before and read just
+    after, launches held to the formula of formulations/implicit.py, then
+    one profiled step (device time by kernel) and the host time of one
+    residual and of one J·v."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nlpartsol_tpu_torch.formulations.explicit import to_slot_layout
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+    from nlpartsol_tpu_torch.ops import solvers
+
+    spec = IMPLICIT[dim]
+    label = "implicit" + _suffix(dim)
+    grid, p0, mats, cfg, h = build_implicit(dim, device)
+    p1, _ = _implicit_steps(label, to_slot_layout(p0, grid, cfg.active_box), grid, mats, cfg,
+                            spec["warm"])
+    torch.cuda.reset_peak_memory_stats()
+    ft.reset_launch_counts()
+    solvers.reset_host_syncs()
+    times = []
+    p2, hist = _implicit_steps(label, p1, grid, mats, cfg, spec["steps"], times)
+    counts, syncs = dict(ft.launch_counts), dict(solvers.host_syncs)
+    steps = spec["steps"]
+    n_tot = sum(h[0] for h in hist)
+    l_tot = sum(h[1] for h in hist)
+    sc, ga = f"lme_scatter{dim}d", f"lme_gather{dim}d"
+    want = {f"{sc}:solve+gnorm": steps, f"{ga}:grad": 3 * steps + 7 * n_tot + 2 * l_tot,
+            f"{sc}:G": steps + 7 * n_tot + 2 * l_tot, f"{ga}:N": steps}
+    if counts != want:
+        raise PhaseError(f"{label}: launch counts {counts}, expected {want}")
+    seconds = 1e-3 * sum(times)
+    total_nnz = sum(h[2] for h in hist)
+    peak = torch.cuda.max_memory_allocated()
+
+    # one more step under torch.profiler: device time, and its share in the
+    # four transfer kernels; busy share against the timed steps' median
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _implicit_steps(label, p2, grid, mats, cfg, 1)
+        torch.cuda.synchronize()
+    costs = _residual_costs(p2, grid, mats, cfg)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    total_us = sum(dev_us(e) for e in kernels)
+    if total_us <= 0:
+        raise PhaseError(f"{label}: torch.profiler recorded no device time")
+    lme_us = sum(dev_us(e) for e in kernels if "lme_" in e.key)
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    say(phase=label, grid="x".join(map(str, grid.dims)), particles=p0.count,
+        slots=cfg.active_box.n_slots, dt=cfg.dt, warmup_steps=spec["warm"], steps=steps,
+        ms_per_step=1e3 * seconds / steps, step_ms=times, nnz_per_step=total_nnz / steps,
+        nnz_per_s=total_nnz / seconds,
+        newton_iters=[h[0] for h in hist], cg_iters=[h[1] for h in hist],
+        newton_residual=[h[3] for h in hist], r0_norm_next_step=costs["r0_norm"],
+        converged=True, lost=0, host_syncs_per_step=sum(syncs.values()) / steps,
+        host_syncs=syncs, launches=counts, launches_expected=want, peak_device_bytes=peak,
+        host_ms_per_residual=costs["residual_ms"], host_ms_per_jv=costs["jv_ms"],
+        profiled_step=dict(
+            device_ms=1e-3 * total_us, device_busy_share=1e-3 * total_us / float(np.median(times)),
+            lme_kernel_ms=1e-3 * lme_us, lme_kernel_share=lme_us / total_us,
+            device_kernels=sum(e.count for e in kernels),
+            top=[dict(name=e.key[:60], count=e.count, device_ms=1e-3 * dev_us(e)) for e in top]))
+    return grid, p1, mats, cfg, h, counts, steps
+
+
+def phase_implicit_parity(grid, p1, mats, cfg, h):
+    """The same implicit steps from the same state through the fused kernels
+    and the port's windowed engine on the card, matched by pid; Newton
+    iterations must be equal, CG totals are reported side by side."""
+    dim = grid.dim
+    label = "implicit_parity" + _suffix(dim)
+    steps = IMPLICIT[dim]["parity_steps"]
+    pf, hist_f = _implicit_steps(label + ":fused", p1, grid, mats, cfg, steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    pw, hist_w = _implicit_steps(label + ":windowed", p1, grid, mats,
+                                 cfg.replace(transfer="windowed"), steps, times)
+    rel_dx, rel_dv = _parity(pf, pw, h, label)
+    newton_f, newton_w = [h[0] for h in hist_f], [h[0] for h in hist_w]
+    ok = rel_dx < 1e-3 and rel_dv < 1e-2 and newton_f == newton_w
+    say(phase=label, steps=steps, rel_dx=rel_dx, rel_dv=rel_dv, limit_dx=1e-3, limit_dv=1e-2,
+        newton_fused=newton_f, newton_windowed=newton_w,
+        cg_fused=[h[1] for h in hist_f], cg_windowed=[h[1] for h in hist_w],
+        nnz_fused=[h[2] for h in hist_f], nnz_windowed=[h[2] for h in hist_w],
+        windowed_ms_per_step=float(np.mean(times)),
+        windowed_peak_device_bytes=torch.cuda.max_memory_allocated(), ok=ok)
+    if not ok:
+        raise PhaseError(f"{label}: rel_dx {rel_dx}, rel_dv {rel_dv}, Newton "
+                         f"{newton_f} vs {newton_w}")
+
+
+def phase_implicit_roofline(grid, p, mats, cfg, counts, steps):
+    """The implicit step's four call variants at its shapes and on its state,
+    against their plain versions (margin 0): the λ solve with gnorm (mass,
+    momenta, stiffness scale), the gradient gather and the G-scatter of each
+    residual, the last N-gather of 3·d channels; launches from the timed
+    run, and per step."""
+    from nlpartsol_tpu_torch.models.materials import lame_parameters
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+
+    d = grid.dim
+    ops_of = OPS[d]
+    box, params = cfg.active_box, cfg.lme_params
+    C, nc = box.capacity, box.n_cells
+    x_t, lam_t, act_t = (ft.to_channel_leading(a, C, nc)
+                         for a in (p.x, p.lme_lambda, p.active.float()))
+    base = (grid, box, params, x_t)
+    n_offs = len(ft._geom(grid, params, 0).offsets)
+    n_active = int(p.active.sum())
+    b_act, b_idle, b_all, b_nodes = _slot_bytes(p, box, grid.n_nodes)
+    tests = n_active * n_offs * ops_of["test"]
+    per_eval = ops_of["f"] + 1 + ops_of["mom"]
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=p.x.device)
+    scatter, gather = f"lme_scatter{d}d", f"lme_gather{d}d"
+    rows = []
+
+    def row(key, fn_kernel, fn_plain, checks, n_bytes, n_ops):
+        return _kernel_row(rows, f"{key}@implicit", key, d, fn_kernel, fn_plain, checks, n_bytes,
+                           n_ops, counts[key], flush, launches_per_step=counts[key] / steps,
+                           path=f"implicit{_suffix(d)}")
+
+    slot_io = 3 * d + 1
+    mid = p.mat_id.long()
+    lam_p, G_p = lame_parameters(mats.E[mid], mats.nu[mid])
+    stiff = (lam_p + 2.0 * G_p) * p.vol0
+    fN = ft.to_channel_leading(
+        torch.cat([p.mass[:, None], p.mass[:, None] * p.v, p.mass[:, None] * p.a, stiff[:, None]],
+                  1), C, nc)
+    cN = 2 * d + 2
+    _, _, cnt = ft.scatter_cuda(grid, box, params, x_t, lam_t, act_t, fN, solve=True, gnorm=True)
+    nnz, iters = (int(v) for v in cnt)
+    ops = (tests + iters * (nnz / n_active) * per_eval
+           + nnz * (ops_of["n"] + ops_of["dn"] + ops_of["gn"] + cN * ops_of["ch"]))
+    nodes1, lam_new, _ = row(
+        f"{scatter}:solve+gnorm",
+        lambda: ft.fused_scatter(*base, lam_t, act_t, fN, solve=True, gnorm=True),
+        lambda: ft._scatter_plain(*base, lam_t, act_t, fN, None, True, 0, True),
+        [("nodes", lambda o: o[0][:, :cN], TOL_N), ("gnorm", lambda o: o[0][:, cN:], TOL_GRAD)],
+        (slot_io + cN) * b_act + (2 * d + 1) * b_idle + (cN + 1) * b_nodes, ops)
+    vel = (nodes1[:, 1:1 + d] / torch.clamp(nodes1[:, :1], min=cfg.mass_tol)).contiguous()
+
+    per_edge = per_eval + ops_of["n"] + ops_of["dn"] + ops_of["grad"]
+    row(f"{gather}:grad",
+        lambda: ft.fused_gather(*base, lam_new, act_t, g_grad=vel),
+        lambda: ft._gather_plain(*base, lam_new, act_t, None, vel, 0),
+        [("grad", lambda o: o[1], TOL_GRAD)],
+        (2 * d + 1) * b_act + b_idle + d * b_nodes + d * d * b_all, tests + nnz * per_edge)
+
+    G_t = ft.to_channel_leading((p.vol0[:, None, None] * p.stress).reshape(-1, d * d), C, nc)
+    zero = ft.to_channel_leading(torch.zeros_like(p.mass), C, nc)
+    per_edge = per_eval + ops_of["n"] + ops_of["dn"] + ops_of["ch"] + ops_of["g"]
+    row(f"{scatter}:G",
+        lambda: ft.fused_scatter(*base, lam_new, act_t, zero, G_t=G_t, solve=False),
+        lambda: ft._scatter_plain(*base, lam_new, act_t, zero, G_t, False, 0, False),
+        [("forces", lambda o: o[0][:, 1:], TOL_GRAD)],
+        (slot_io + 1 + d * d) * b_act + (2 * d + 1) * b_idle + (1 + d) * b_nodes,
+        tests + nnz * per_edge)
+
+    fields = torch.cat([vel, 2.0 * vel, -vel], 1).contiguous()
+    per_edge = ops_of["f"] + 1 + 1 + ops_of["n"] + 3 * d * ops_of["ch"]
+    row(f"{gather}:N",
+        lambda: ft.fused_gather(*base, lam_new, act_t, gN=fields),
+        lambda: ft._gather_plain(*base, lam_new, act_t, fields, None, 0),
+        [("N", lambda o: o[0], TOL_N)],
+        (2 * d + 1) * b_act + b_idle + 3 * d * b_nodes + 3 * d * b_all, tests + nnz * per_edge)
+    say(phase="roofline_implicit" + _suffix(d), slots=box.n_slots, active=n_active,
+        window_offsets=n_offs, nnz=nnz, newton_iterations_per_active_slot=iters / n_active,
+        rows=[dict(name=r["name"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                   launches_per_step=r["launches_per_step"]) for r in rows])
+    return rows
 
 
 def phase_profile(grid, p1, mats, cfg, label="profile"):
@@ -879,8 +1184,9 @@ def phase_large(device, dim):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,main_path,parity,roofline,kernels3d,"
-                    "main_path3d,parity3d,roofline3d,probes,large3d,large",
+    ap.add_argument("--phases", default="kernels,main_path,parity,roofline,implicit,"
+                    "implicit_parity,kernels3d,main_path3d,parity3d,roofline3d,implicit3d,"
+                    "implicit_parity3d,probes,large3d,large",
                     help="comma-separated phases to run after device and build")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -912,6 +1218,14 @@ def main():
             if "roofline" + sfx in phases:
                 rows += phase_roofline(grid, p1, mats, cfg, counts)
             del p0, p1
+            torch.cuda.empty_cache()
+        if phases & {"implicit" + sfx, "implicit_parity" + sfx}:
+            grid, p1, mats, cfg, h, counts, steps = phase_implicit(device, dim)
+            if "implicit_parity" + sfx in phases:
+                phase_implicit_parity(grid, p1, mats, cfg, h)
+            if "roofline" + sfx in phases:
+                rows += phase_implicit_roofline(grid, p1, mats, cfg, counts, steps)
+            del p1
             torch.cuda.empty_cache()
     if "probes" in phases:
         rows += phase_probes(device)

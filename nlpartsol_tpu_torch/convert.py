@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .formulations.explicit import ExplicitConfig
+from .formulations.implicit import ImplicitConfig
 from .models.materials import MaterialTable
 from .ops.windowed import ActiveBox
 from .shapefun.lme import LMEParams
@@ -85,18 +86,18 @@ def grid_from_numpy(
     )
 
 
-def config_from_fields(fields: dict) -> ExplicitConfig:
-    """ExplicitConfig from the static fields of the JAX package's config
+def _config_from_fields(cls, fields: dict, waiting: dict):
+    """A port config from the static fields of the JAX package's config
     (``dataclasses.asdict``-style dict, nested ``lme_params`` and
     ``active_box`` as dicts or objects with the same attribute names).  The
     transfer name ``'pallas'`` becomes ``'fused'``; fields the port does not
-    have must hold their defaults."""
+    have (``waiting``: name → default) must hold their defaults."""
 
-    def sub(cls, v):
-        if v is None or isinstance(v, cls):
+    def sub(sub_cls, v):
+        if v is None or isinstance(v, sub_cls):
             return v
         get = v.get if isinstance(v, dict) else lambda k: getattr(v, k)
-        return cls(**{n: get(n) for n in _fields(cls)})
+        return sub_cls(**{n: get(n) for n in _fields(sub_cls)})
 
     kw = dict(fields)
     kw["lme_params"] = sub(LMEParams, kw.get("lme_params")) or LMEParams()
@@ -104,11 +105,10 @@ def config_from_fields(fields: dict) -> ExplicitConfig:
     if box is not None:
         box = box.replace(offset=tuple(box.offset), cdims=tuple(box.cdims))
     kw["active_box"] = box
-    kw["transfer"] = _TRANSFER_NAMES.get(kw.get("transfer"), kw.get("transfer", "windowed"))
+    default_transfer = {f.name: f.default for f in dataclasses.fields(cls)}["transfer"]
+    kw["transfer"] = _TRANSFER_NAMES.get(kw.get("transfer"), kw.get("transfer", default_transfer))
     kw["kinds"] = tuple(kw.get("kinds", (3,)))
-    own = set(_fields(ExplicitConfig))
-    # options of the reference that the port has not reached yet
-    waiting = {"alme_params": None, "beps_reach": 1, "ga_rb": 0.6, "prebinned": False}
+    own = set(_fields(cls))
     for name in [n for n in kw if n not in own]:
         if name not in waiting:
             raise ValueError(f"config_from_fields: unknown field '{name}'")
@@ -117,4 +117,20 @@ def config_from_fields(fields: dict) -> ExplicitConfig:
                 f"config field '{name}'={kw[name]!r} is not ported yet (see ROADMAP.md)"
             )
         del kw[name]
-    return ExplicitConfig(**kw)
+    return cls(**kw)
+
+
+def config_from_fields(fields: dict) -> ExplicitConfig:
+    """ExplicitConfig from the static fields of the JAX package's
+    ExplicitConfig (see :func:`_config_from_fields`)."""
+    # options of the reference that the port has not reached yet
+    waiting = {"alme_params": None, "beps_reach": 1, "ga_rb": 0.6, "prebinned": False}
+    return _config_from_fields(ExplicitConfig, fields, waiting)
+
+
+def implicit_config_from_fields(fields: dict) -> ImplicitConfig:
+    """ImplicitConfig from the static fields of the JAX package's
+    ImplicitConfig (see :func:`_config_from_fields`); its ``'pallas'``
+    transfer is the port's ``'fused'``."""
+    waiting = {"alme_params": None, "beps_reach": 1}
+    return _config_from_fields(ImplicitConfig, fields, waiting)

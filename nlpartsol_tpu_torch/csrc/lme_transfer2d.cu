@@ -65,7 +65,7 @@
 #include <cuda_runtime.h>
 
 #define MAX_PAIRS 192
-#define MAX_CN 8
+#define MAX_CN 12
 #define NEG_BIG (-1e30f)
 #define LOG2E 1.4426950408889634f
 #define BLOCK 128
@@ -231,8 +231,10 @@ struct ScatterIO {
 };
 
 // One block per cell tile.  Shared memory: the tile's footprint sums,
-// channel-major (cout, f0*f1).
-template <bool SOLVE, bool NEED_DN>
+// channel-major (cout, f0*f1).  CNB, fixed at compile time, bounds the N
+// channels (1, 4, 8 or 12; io.cN <= CNB): their values live in registers, so
+// a bound as wide as the widest call would cost every narrow call registers.
+template <bool SOLVE, bool NEED_DN, int CNB>
 __global__ void __launch_bounds__(BLOCK)
 lme_scatter2d_kernel(const Geom g, const Window w, const Tiles t, const ScatterIO io) {
   extern __shared__ float acc[];
@@ -276,9 +278,9 @@ lme_scatter2d_kernel(const Geom g, const Window w, const Tiles t, const ScatterI
       const float iz = 1.0f / fmaxf(m.S0, 1e-30f);
       float rb[2] = {0.f, 0.f}, inv[3] = {0.f, 0.f, 0.f};
       if (NEED_DN) r_and_Jinv(m, rb, inv);
-      float fv[MAX_CN];
+      float fv[CNB];
 #pragma unroll
-      for (int c = 0; c < MAX_CN; ++c) fv[c] = c < io.cN ? io.fN[c * g.Ns + s] : 0.f;
+      for (int c = 0; c < CNB; ++c) fv[c] = c < io.cN ? io.fN[c * g.Ns + s] : 0.f;
       float G[4] = {0.f, 0.f, 0.f, 0.f}, sg = 0.f;
       if (NEED_DN) {
         if (io.has_G) {
@@ -294,7 +296,7 @@ lme_scatter2d_kernel(const Geom g, const Window w, const Tiles t, const ScatterI
         const float N = exp2f(fval2(g, sl, r0, r1, sq) - m.fmax) * iz;
         float* out = acc + (i0 * t.f1 + i1 - shift);
 #pragma unroll
-        for (int c = 0; c < MAX_CN; ++c)
+        for (int c = 0; c < CNB; ++c)
           if (c < io.cN && fv[c] != 0.f) atomicAdd(out + c * F, N * fv[c]);
         if (NEED_DN) {
           // dN = -N J^-1 (l - rbar)
@@ -351,7 +353,7 @@ struct GatherIO {
 // then N-gather q/Z and, with rbar = S1/Z and J^-1 from S2,
 //   outG_ij = -(1/Z) sum_k (M_ik - p_i*rbar_k) J^-1_kj,
 // which is sum_A gg_A,i dN_A/dx_j with dN_A = -N_A J^-1 (l_A - rbar).
-// CN, the N-gather's channel count, is fixed at compile time (1-8): a row
+// CN, the N-gather's channel count, is fixed at compile time (1-12): a row
 // whose length is known only at run time would make each load wait behind
 // a branch.
 template <bool HAS_N, bool HAS_GRAD, int CN>
@@ -455,10 +457,10 @@ static int make_geom(Geom& g, int Ns, int nc, int c1, int b0, int b1, int n1, in
 // array of n_offs (o0, o1) pairs; ``plan`` (scatter) a HOST array of the
 // tile plan: tile cells t0 t1, footprint nodes f0 f1, lowest window offset
 // m0 m1 per axis.  Launches on ``stream``; never synchronises.
-template <bool SOLVE, bool NEED_DN>
+template <bool SOLVE, bool NEED_DN, int CNB>
 static int launch_scatter(const Geom& g, const Window& w, const Tiles& t, const ScatterIO& io,
                           int blocks, int smem, cudaStream_t st) {
-  auto kernel = lme_scatter2d_kernel<SOLVE, NEED_DN>;
+  auto kernel = lme_scatter2d_kernel<SOLVE, NEED_DN, CNB>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -466,6 +468,27 @@ static int launch_scatter(const Geom& g, const Window& w, const Tiles& t, const 
   }
   kernel<<<blocks, BLOCK, smem, st>>>(g, w, t, io);
   return (int)cudaGetLastError();
+}
+
+// The instantiation of a call: SOLVE and NEED_DN from its options, the
+// channel bound CNB from its cN.
+template <int CNB>
+static int launch_scatter_b(bool solve, bool need_dn, const Geom& g, const Window& w,
+                            const Tiles& t, const ScatterIO& io, int blocks, int smem,
+                            cudaStream_t st) {
+  if (solve && need_dn) return launch_scatter<true, true, CNB>(g, w, t, io, blocks, smem, st);
+  if (solve) return launch_scatter<true, false, CNB>(g, w, t, io, blocks, smem, st);
+  if (need_dn) return launch_scatter<false, true, CNB>(g, w, t, io, blocks, smem, st);
+  return launch_scatter<false, false, CNB>(g, w, t, io, blocks, smem, st);
+}
+
+static int launch_scatter_cn(int cN, bool solve, bool need_dn, const Geom& g, const Window& w,
+                             const Tiles& t, const ScatterIO& io, int blocks, int smem,
+                             cudaStream_t st) {
+  if (cN == 1) return launch_scatter_b<1>(solve, need_dn, g, w, t, io, blocks, smem, st);
+  if (cN <= 4) return launch_scatter_b<4>(solve, need_dn, g, w, t, io, blocks, smem, st);
+  if (cN <= 8) return launch_scatter_b<8>(solve, need_dn, g, w, t, io, blocks, smem, st);
+  return launch_scatter_b<12>(solve, need_dn, g, w, t, io, blocks, smem, st);
 }
 
 extern "C" int lme_scatter2d(
@@ -504,12 +527,8 @@ extern "C" int lme_scatter2d(
   // fused_transfer.py::tile_plan keeps this within a block's 227 KB
   const long long smem = 4LL * t.f0 * t.f1 * io.cout;
   const int blocks = q0 * t.q1;
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool need_dn = has_G || gnorm;
-  if (solve && need_dn) return launch_scatter<true, true>(g, w, t, io, blocks, (int)smem, st);
-  if (solve) return launch_scatter<true, false>(g, w, t, io, blocks, (int)smem, st);
-  if (need_dn) return launch_scatter<false, true>(g, w, t, io, blocks, (int)smem, st);
-  return launch_scatter<false, false>(g, w, t, io, blocks, (int)smem, st);
+  return launch_scatter_cn(cN, solve, has_G || gnorm, g, w, t, io, blocks, (int)smem,
+                           (cudaStream_t)stream);
 }
 
 template <bool HAS_N, bool HAS_GRAD, int CN>
@@ -528,7 +547,11 @@ static void launch_gather_n(int cN, const Geom& g, const Window& w, const Gather
     case 5: launch_gather<true, HAS_GRAD, 5>(g, w, io, st); break;
     case 6: launch_gather<true, HAS_GRAD, 6>(g, w, io, st); break;
     case 7: launch_gather<true, HAS_GRAD, 7>(g, w, io, st); break;
-    default: launch_gather<true, HAS_GRAD, 8>(g, w, io, st); break;
+    case 8: launch_gather<true, HAS_GRAD, 8>(g, w, io, st); break;
+    case 9: launch_gather<true, HAS_GRAD, 9>(g, w, io, st); break;
+    case 10: launch_gather<true, HAS_GRAD, 10>(g, w, io, st); break;
+    case 11: launch_gather<true, HAS_GRAD, 11>(g, w, io, st); break;
+    default: launch_gather<true, HAS_GRAD, 12>(g, w, io, st); break;
   }
 }
 

@@ -69,7 +69,7 @@
 #include <cuda_runtime.h>
 
 #define MAX_TRIPS 512
-#define MAX_CN 8
+#define MAX_CN 12
 #define NEG_BIG (-1e30f)
 #define LOG2E 1.4426950408889634f
 #define BLOCK 128
@@ -257,8 +257,10 @@ struct ScatterIO {
 };
 
 // One block per cell tile.  Shared memory: the tile's footprint sums,
-// channel-major (cout, f0*f1*f2).
-template <bool SOLVE, bool NEED_DN>
+// channel-major (cout, f0*f1*f2).  CNB, fixed at compile time, bounds the N
+// channels (1, 4, 8 or 12; io.cN <= CNB): their values live in registers, so
+// a bound as wide as the widest call would cost every narrow call registers.
+template <bool SOLVE, bool NEED_DN, int CNB>
 __global__ void __launch_bounds__(BLOCK)
 lme_scatter3d_kernel(const Geom g, const Window w, const Tiles t, const ScatterIO io) {
   extern __shared__ float acc[];
@@ -308,9 +310,9 @@ lme_scatter3d_kernel(const Geom g, const Window w, const Tiles t, const ScatterI
       float rb[3] = {0.f, 0.f, 0.f}, inv[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (NEED_DN) r_and_Jinv(m, rb, inv);
 
-      float fv[MAX_CN];
+      float fv[CNB];
 #pragma unroll
-      for (int c = 0; c < MAX_CN; ++c) fv[c] = c < io.cN ? io.fN[c * g.Ns + s] : 0.f;
+      for (int c = 0; c < CNB; ++c) fv[c] = c < io.cN ? io.fN[c * g.Ns + s] : 0.f;
       float G[9], sg = 0.f;
 #pragma unroll
       for (int i = 0; i < 9; ++i) G[i] = 0.f;
@@ -330,7 +332,7 @@ lme_scatter3d_kernel(const Geom g, const Window w, const Tiles t, const ScatterI
         const float N = exp2f(fval2(g, sl, r0, r1, r2, sq) - m.fmax) * iz;
         float* out = acc + ((i0 * t.f1 + i1) * t.f2 + i2 - shift);
 #pragma unroll
-        for (int c = 0; c < MAX_CN; ++c)
+        for (int c = 0; c < CNB; ++c)
           if (c < io.cN && fv[c] != 0.f) atomicAdd(out + c * F, N * fv[c]);
         if (NEED_DN) {
           float d0, d1, d2;
@@ -389,20 +391,23 @@ struct GatherIO {
 //   outG_ij = -(1/Z) sum_k (M_ik - p_i*rbar_k) J^-1_kj,
 // which is sum_A gg_A,i dN_A/dx_j with dN_A = -N_A J^-1 (l_A - rbar).
 // CN: the N-gather's channel count when it is fixed at compile time (3, the
-// 3D step's gathers), else 0 and io.cN.  Loads of a row whose length is
-// known only at run time would each wait behind a branch, so the runtime
-// count loads MAX_CN channels (clamped to the row) before any add.
+// explicit step's gathers; 9, the implicit step's last), else 0 and io.cN.
+// Loads of a row whose length is known only at run time would each wait
+// behind a branch, so the runtime count loads MAX_CN channels (clamped to
+// the row) before any add.
 template <bool HAS_N, bool HAS_GRAD, int CN>
 __global__ void __launch_bounds__(BLOCK)
 lme_gather3d_kernel(const Geom g, const Window w, const GatherIO io) {
   const int s = blockIdx.x * BLOCK + threadIdx.x;
   if (s >= g.Ns) return;
   // running sums, all rescaled together: S0, S1[3], S2[6], p[3], M[9] (with
-  // the gradient), q[MAX_CN]
-  constexpr int NG = HAS_GRAD ? 22 : 1;
-  float acc[NG + MAX_CN];
+  // the gradient), q[QN].  QN is 8 for a compile-time count up to 8: with 3
+  // sums the 3-channel N-gather of the explicit step measured 8 % slower on
+  // the H100 than with 8 (registers 40 against 44).
+  constexpr int NG = HAS_GRAD ? 22 : 1, QN = CN > 8 ? CN : (CN ? 8 : MAX_CN);
+  float acc[NG + QN];
 #pragma unroll
-  for (int i = 0; i < NG + MAX_CN; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NG + QN; ++i) acc[i] = 0.f;
   float* q = acc + NG;
   Slot sl;
   const int cell = s % g.nc;
@@ -413,7 +418,7 @@ lme_gather3d_kernel(const Geom g, const Window w, const GatherIO io) {
     for_each_edge(g, w, sl, [&](float r0, float r1, float r2, float sq, int i0, int i1,
                                 int i2) {
       const size_t node = (size_t)(i0 * g.n1 + i1) * g.n2 + i2;
-      const float e = running_exp2<NG + MAX_CN>(fval2(g, sl, r0, r1, r2, sq), fmax, acc);
+      const float e = running_exp2<NG + QN>(fval2(g, sl, r0, r1, r2, sq), fmax, acc);
       acc[0] += e;
       if (HAS_GRAD) {
         const float e0 = e * r0, e1 = e * r1, e2 = e * r2;
@@ -434,11 +439,12 @@ lme_gather3d_kernel(const Geom g, const Window w, const GatherIO io) {
       if (HAS_N && !(HAS_GRAD && io.same)) {
         const int cn = CN ? CN : io.cN;
         const float* f_ = io.gN + node * cn;
-        float v[MAX_CN];
+        constexpr int LN = CN ? CN : MAX_CN;  // loads of a row
+        float v[LN];
 #pragma unroll
-        for (int c = 0; c < (CN ? CN : MAX_CN); ++c) v[c] = __ldg(f_ + min(c, cn - 1));
+        for (int c = 0; c < LN; ++c) v[c] = __ldg(f_ + min(c, cn - 1));
 #pragma unroll
-        for (int c = 0; c < (CN ? CN : MAX_CN); ++c)
+        for (int c = 0; c < LN; ++c)
           if (c < cn) q[c] += e * v[c];
       }
     });
@@ -452,7 +458,7 @@ lme_gather3d_kernel(const Geom g, const Window w, const GatherIO io) {
   const float iz = 1.0f / fmaxf(acc[0], 1e-30f);
   if (HAS_N) {
 #pragma unroll
-    for (int c = 0; c < MAX_CN; ++c)
+    for (int c = 0; c < QN; ++c)
       if (c < io.cN) io.outN[(size_t)s * io.cN + c] = q[c] * iz;
   }
   if (HAS_GRAD) {
@@ -516,10 +522,10 @@ static int make_geom(Geom& g, int Ns, int nc, int c1, int c2, int b0, int b1, in
 // the tile plan: tile cells t0 t1 t2, footprint nodes f0 f1 f2, lowest
 // window offset m0 m1 m2 per axis.  Launches on ``stream``; never
 // synchronises.
-template <bool SOLVE, bool NEED_DN>
+template <bool SOLVE, bool NEED_DN, int CNB>
 static int launch_scatter(const Geom& g, const Window& w, const Tiles& t, const ScatterIO& io,
                           int blocks, int smem, cudaStream_t st) {
-  auto kernel = lme_scatter3d_kernel<SOLVE, NEED_DN>;
+  auto kernel = lme_scatter3d_kernel<SOLVE, NEED_DN, CNB>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -527,6 +533,27 @@ static int launch_scatter(const Geom& g, const Window& w, const Tiles& t, const 
   }
   kernel<<<blocks, BLOCK, smem, st>>>(g, w, t, io);
   return (int)cudaGetLastError();
+}
+
+// The instantiation of a call: SOLVE and NEED_DN from its options, the
+// channel bound CNB from its cN.
+template <int CNB>
+static int launch_scatter_b(bool solve, bool need_dn, const Geom& g, const Window& w,
+                            const Tiles& t, const ScatterIO& io, int blocks, int smem,
+                            cudaStream_t st) {
+  if (solve && need_dn) return launch_scatter<true, true, CNB>(g, w, t, io, blocks, smem, st);
+  if (solve) return launch_scatter<true, false, CNB>(g, w, t, io, blocks, smem, st);
+  if (need_dn) return launch_scatter<false, true, CNB>(g, w, t, io, blocks, smem, st);
+  return launch_scatter<false, false, CNB>(g, w, t, io, blocks, smem, st);
+}
+
+static int launch_scatter_cn(int cN, bool solve, bool need_dn, const Geom& g, const Window& w,
+                             const Tiles& t, const ScatterIO& io, int blocks, int smem,
+                             cudaStream_t st) {
+  if (cN == 1) return launch_scatter_b<1>(solve, need_dn, g, w, t, io, blocks, smem, st);
+  if (cN <= 4) return launch_scatter_b<4>(solve, need_dn, g, w, t, io, blocks, smem, st);
+  if (cN <= 8) return launch_scatter_b<8>(solve, need_dn, g, w, t, io, blocks, smem, st);
+  return launch_scatter_b<12>(solve, need_dn, g, w, t, io, blocks, smem, st);
 }
 
 extern "C" int lme_scatter3d(
@@ -568,12 +595,8 @@ extern "C" int lme_scatter3d(
   // fused_transfer.py::tile_plan keeps this within a block's 227 KB
   const long long smem = 4LL * t.f0 * t.f1 * t.f2 * io.cout;
   const int blocks = q0 * t.q1 * t.q2;
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool need_dn = has_G || gnorm;
-  if (solve && need_dn) return launch_scatter<true, true>(g, w, t, io, blocks, (int)smem, st);
-  if (solve) return launch_scatter<true, false>(g, w, t, io, blocks, (int)smem, st);
-  if (need_dn) return launch_scatter<false, true>(g, w, t, io, blocks, (int)smem, st);
-  return launch_scatter<false, false>(g, w, t, io, blocks, (int)smem, st);
+  return launch_scatter_cn(cN, solve, has_G || gnorm, g, w, t, io, blocks, (int)smem,
+                           (cudaStream_t)stream);
 }
 
 extern "C" int lme_gather3d(
@@ -604,6 +627,8 @@ extern "C" int lme_gather3d(
     lme_gather3d_kernel<true, true, 0><<<grid, block, 0, st>>>(g, w, io);
   else if (has_n && cN == 3)
     lme_gather3d_kernel<true, false, 3><<<grid, block, 0, st>>>(g, w, io);
+  else if (has_n && cN == 9)
+    lme_gather3d_kernel<true, false, 9><<<grid, block, 0, st>>>(g, w, io);
   else if (has_n)
     lme_gather3d_kernel<true, false, 0><<<grid, block, 0, st>>>(g, w, io);
   else

@@ -68,7 +68,7 @@ from . import cuda_build, windowed
 
 Tensor = torch.Tensor
 
-MAX_CN = 8  # N-weighted channels per call (csrc: MAX_CN)
+MAX_CN = 12  # N-weighted channels per call (csrc: MAX_CN)
 # window offsets per call, by dimension (csrc: MAX_PAIRS, MAX_TRIPS)
 MAX_OFFSETS = {2: 192, 3: 512}
 # cells of a scatter tile per box axis, by dimension; the fewest tiles a box
@@ -485,6 +485,88 @@ def fused_gather(
         return _gather_plain(grid, box, params, x_t, lam_t, act_t, gN, g_grad, margin)
     return gather_cuda(grid, box, params, x_t, lam_t, act_t, gN=gN, g_grad=g_grad,
                        margin=margin)
+
+
+# ---------------------------------------------------------------------------
+# forward-mode derivatives of the linear uses (the implicit step's J·v)
+# ---------------------------------------------------------------------------
+#
+# At a fixed λ each kernel call below is linear in one node or slot field, so
+# its derivative along a tangent is the same call on the tangent: the JAX
+# package's ``implicit._linear_op`` (a custom JVP returning fn(x), fn(t)).
+# Under forward-mode AD with dual tensors (``solvers.jvp``) each launches its
+# kernel for the primal and once more for the tangent.  ``geo`` = (grid,
+# box, params, x_t, lam_t, act_t, margin): positions, λ and ``act`` carry no
+# tangent.
+
+
+def _keep_geo(ctx, inputs, output):
+    ctx.geo = inputs[1]
+
+
+def _gather_grad(v: Tensor, geo) -> Tensor:
+    grid, box, params, x_t, lam_t, act_t, margin = geo
+    return fused_gather(grid, box, params, x_t, lam_t, act_t, g_grad=v.contiguous(),
+                        margin=margin)[1]
+
+
+def _gather_n(v: Tensor, geo) -> Tensor:
+    grid, box, params, x_t, lam_t, act_t, margin = geo
+    return fused_gather(grid, box, params, x_t, lam_t, act_t, gN=v.contiguous(),
+                        margin=margin)[0]
+
+
+def _scatter_g(G: Tensor, geo) -> Tensor:
+    grid, box, params, x_t, lam_t, act_t, margin = geo
+    d = grid.dim
+    C, nc = box.capacity, box.n_cells
+    zero = torch.zeros((1, C, nc), dtype=G.dtype, device=G.device)
+    G_t = to_channel_leading(G.reshape(-1, d * d), C, nc)
+    return fused_scatter(grid, box, params, x_t, lam_t, act_t, zero, G_t=G_t, solve=False,
+                         margin=margin)[0]
+
+
+class GatherGrad(torch.autograd.Function):
+    """(n_nodes, d) node field ↦ (Ns, d, d) Σ_A g_A ⊗ ∇N_A at fixed λ."""
+
+    @staticmethod
+    def forward(v, geo):
+        return _gather_grad(v, geo)
+
+    setup_context = staticmethod(_keep_geo)
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        return _gather_grad(t, ctx.geo)
+
+
+class GatherN(torch.autograd.Function):
+    """(n_nodes, cN) node field ↦ (Ns, cN) Σ_A N_A·f_A at fixed λ."""
+
+    @staticmethod
+    def forward(v, geo):
+        return _gather_n(v, geo)
+
+    setup_context = staticmethod(_keep_geo)
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        return _gather_n(t, ctx.geo)
+
+
+class ScatterG(torch.autograd.Function):
+    """(Ns, d, d) slot matrices G ↦ the scatter's (n_nodes, 1 + d) nodes at
+    fixed λ: a zero N channel, then Σ_p G·∇N_A."""
+
+    @staticmethod
+    def forward(G, geo):
+        return _scatter_g(G, geo)
+
+    setup_context = staticmethod(_keep_geo)
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        return _scatter_g(t, ctx.geo)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from nlpartsol_tpu.formulations import explicit as jex
 from nlpartsol_tpu.models import materials as jM
@@ -159,3 +160,23 @@ def by_pid(p, names=("x", "v", "F", "stress")):
     act = np.asarray(p.active)
     order = np.argsort(np.asarray(p.pid)[act])
     return {n: np.asarray(getattr(p, n))[act][order] for n in names}
+
+
+def implicit_configs(gj, bj, lj, **kw):
+    """The JAX package's ImplicitConfig for a Neo-Hookean E=1e6, ρ=1e3 LME
+    problem at dt = h/(2c) and the port's, made from its static fields by
+    ``convert.py`` (the JAX transfer 'pallas' becomes 'fused')."""
+    from nlpartsol_tpu.formulations import implicit as jim
+
+    dt = 0.5 * gj.spacing / np.sqrt(1e6 / 1e3)
+    cfg_j = jim.ImplicitConfig(dt=dt, shapefun="lme", lme_params=lj, kinds=(jM.NEO_HOOKEAN,),
+                               active_box=bj, **kw)
+    static = {f.name: getattr(cfg_j, f.name) for f in dataclasses.fields(cfg_j)}
+    return cfg_j, convert.implicit_config_from_fields(static)
+
+
+def with_fields(pj, tp, **arrays):
+    """The same numpy arrays set as particle fields on both sides."""
+    pj = pj.replace(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    tp = tp.replace(**{k: torch.as_tensor(v) for k, v in arrays.items()})
+    return pj, tp
