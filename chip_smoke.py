@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``nlpartsol_tpu_torch/csrc`` (one ``nvcc`` per
-source, all started together) and drives the port's four paths — the 2D and
-the 3D explicit LME step, and the 2D and 3D implicit Newmark step, on the
-fused kernels — on the card.  Each phase
+source, all started together) and drives the port's six paths — the 2D and
+the 3D explicit LME step, the 2D and 3D implicit Newmark step, and the 2D
+explicit and implicit soil-water mixture (u-pw) step, on the fused kernels —
+on the card.  Each phase
 prints one JSON line; any failure ends the run with a non-zero exit code.
 Without a CUDA device the script fails at once.
 
@@ -47,6 +48,31 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              and the port's windowed engine on the card, matched by pid:
              rel_dx < 1e-3, rel_dv < 1e-2, equal Newton iterations (3D:
              ``implicit_parity3d``)
+  upw        scripts/bench_upw.py's explicit soil-water mixture step on the
+             fused kernels: 512² nodes, 262,144 particles, capacity-6 box of
+             260² cells, Neo-Hookean soil and compressible water, LME γ=3,
+             dt = 0.25·h/c_mix, local re-bin every step; 4 warm-up + 16
+             timed steps, 3 scatters and 5 gathers a step
+  upw_parity 8 explicit u-pw steps from the same state through the fused
+             kernels and the windowed engine on the card, by pid: rel_dx <
+             1e-3, rel_dv < 1e-2, pw within 1e-4 of its largest magnitude;
+             and tests/test_upw.py's column, 25 steps, at the JAX package's
+             limits there (x 1e-6, pw 1e-5 of its largest magnitude, φ_f
+             1e-6)
+  upw_implicit
+             bench_upw.py --implicit's step: 256² nodes, 65,536 particles,
+             capacity-6 box of 132² cells, dt 20× the explicit one,
+             Newton-GMRES on the row- and column-scaled residual; 1 warm-up
+             + 3 timed steps (the script times 8), every Newton loop ended by
+             its tolerance or stall rule (``converged`` reported), nothing
+             lost, launches held to the formula of
+             formulations/upw.py, host syncs, one profiled step
+  upw_implicit_parity
+             2 implicit u-pw steps on both engines on the card at 128², by pid:
+             rel_dx < 1e-3, rel_dv < 1e-2, pw within 1e-2 of its largest
+             magnitude, equal Newton iterations; with ``roofline`` the u-pw
+             steps' call variants at their shapes (rows ``…@upw``,
+             ``…@upw_implicit``)
   probes     the lane-roll probes: a roll sum checked exactly against
              torch.roll, and timed beside its multiply-add twin at 4 shapes
   large      (if time allows) the fused path alone at the bigger size: 3D
@@ -213,7 +239,12 @@ def _slot_problem(seed, dim, n_side, lo_cell, n_cell, capacity, per_cell, drift,
 # gradient alone, at margin 0 and of 5 channels (the step gathers d).  The
 # last cases are the implicit step's wide calls at margin 0: its first
 # scatter with gnorm (2D 6 channels, 8 with tractions; 3D 8 and 11) and its
-# last N-gather (2D 6, 3D 9 channels).
+# last N-gather (2D 6, 3D 9 channels); then the u-pw steps' calls (2D): the
+# explicit λ solve of 7 channels, the implicit one of 8 with gnorm, the
+# fixed-λ gnorm scatter of one channel (the Darcy diagonal), the fixed-λ
+# scatter of a G row 0 beside a zero channel (the flow row), and the gather
+# of 3 channels with the gradient of their first 2 (options ``solve``,
+# ``zero_fN``, ``G_row0``, ``grad_of_N``).
 RAGGED2 = dict(problem=(64, 4, (37, 53), 3, 2))
 SMALL2 = dict(problem=(32, 2, 24, 2, 1))
 RAGGED3 = dict(problem=(32, 4, 21, 3, 2))
@@ -234,14 +265,23 @@ KERNEL_CASES = {
                      ("solve,cN=6,gnorm,margin=0 (implicit)", 0, False, True, None, 31,
                       dict(cN=6)),
                      ("solve,cN=8,gnorm,margin=0 (implicit, tractions)", 0, False, True, None,
-                      32, dict(cN=8))],
+                      32, dict(cN=8)),
+                     ("solve,cN=7,margin=0 (upw)", 0, False, False, None, 37, dict(cN=7)),
+                     ("solve,cN=8,gnorm,margin=0 (upw implicit)", 0, False, True, None, 38,
+                      dict(cN=8)),
+                     ("fixed lam,cN=1,gnorm,margin=0 (upw implicit Darcy diagonal)", 0, False,
+                      True, None, 39, dict(cN=1, solve=False)),
+                     ("fixed lam,cN=1 zero,G row 0,margin=0 (upw flow row)", 0, True, False,
+                      None, 40, dict(cN=1, solve=False, zero_fN=True, G_row0=True))],
             gather=[("cN=2+grad,margin=1", 1, True, True, 6),
                     ("cN=2,margin=1", 1, True, False, 7),
                     ("grad,margin=0", 0, False, True, 27),
                     ("cN=2+grad,margin=0", 0, True, True, 28),
                     ("cN=2+grad,margin=1,ragged 37x53 x C3", 1, True, True, 29, RAGGED2),
                     ("cN=5+grad,margin=0", 0, True, True, 30, dict(cN=5)),
-                    ("cN=6,margin=0 (implicit)", 0, True, False, 33, dict(cN=6))]),
+                    ("cN=6,margin=0 (implicit)", 0, True, False, 33, dict(cN=6)),
+                    ("cN=3+grad of its first 2 columns,margin=0 (upw)", 0, True, True, 41,
+                     dict(cN=3, grad_of_N=True))]),
     3: dict(problem=(32, 4, 24, 2, 1), grid="32x32x32", box="24^3 cells x capacity 2",
             scatter=[("solve,cN=4,margin=0", 0, False, False, None, 11),
                      ("solve,cN=4,margin=1", 1, False, False, None, 12),
@@ -304,20 +344,36 @@ def phase_kernels(device, dim):
             grid = grid.replace(valid_lo=(lo, lo - 1) + (lo,) * rest,
                                 valid_hi=(hi, hi + 1) + (hi,) * rest)
         C, nc = box.capacity, box.n_cells
+        opts = opts or {}
         x_t, lam_t, act_t = slot_inputs(p, box)
+        solve = opts.get("solve", True)
+        if not solve:
+            # a fixed-λ call runs at the λ the step's first scatter solved
+            _, lam_t, _ = ft._scatter_plain(grid, box, params, x_t, lam_t, act_t,
+                                            ft.to_channel_leading(p.mass, C, nc), None, True,
+                                            margin, False)
         vel = rand(rng, p.count, dim)
-        cN = (opts or {}).get("cN", dim + 1)
-        fN = ft.to_channel_leading(
-            torch.cat([p.mass[:, None], p.mass[:, None] * vel,
-                       rand(rng, p.count, cN - dim - 1)], dim=1), C, nc)
-        G_t = ft.to_channel_leading(rand(rng, p.count, dim * dim), C, nc) if has_G else None
+        cN = opts.get("cN", dim + 1)
+        chans = torch.cat([p.mass[:, None], p.mass[:, None] * vel,
+                           rand(rng, p.count, max(cN - dim - 1, 0))], dim=1)[:, :cN]
+        if opts.get("zero_fN"):
+            chans = torch.zeros_like(chans)
+        fN = ft.to_channel_leading(chans.contiguous(), C, nc)
+        G_t = None
+        if has_G:
+            G = rand(rng, p.count, dim, dim)
+            if opts.get("G_row0"):  # a vector in row 0 of G, the rest zero
+                G[:, 1:, :] = 0.0
+            G_t = ft.to_channel_leading(G.reshape(-1, dim * dim), C, nc)
         args = (grid, box, params, x_t, lam_t, act_t, fN)
-        kw = dict(G_t=G_t, solve=True, margin=margin, gnorm=gnorm)
+        kw = dict(G_t=G_t, solve=solve, margin=margin, gnorm=gnorm)
         nodes, lam, nnz = ft.fused_scatter(*args, **kw)
         torch.cuda.synchronize()
-        r_nodes, r_lam, r_nnz = ft._scatter_plain(*args, G_t, True, margin, gnorm)
+        r_nodes, r_lam, r_nnz = ft._scatter_plain(*args, G_t, solve, margin, gnorm)
         out = dict(kernel=f"lme_scatter{dim}d", case=label, slots=box.n_slots,
                    active=int(p.active.sum()))
+        if opts.get("zero_fN") and float(nodes[:, :cN].abs().max()) != 0.0:
+            raise PhaseError(f"{label}: a zero channel scattered non-zero sums")
         out["N"] = compare(label + ":N", nodes[:, :cN], r_nodes[:, :cN], **TOL_N)
         if has_G or gnorm:
             out["grad"] = compare(label + ":grad", nodes[:, cN:], r_nodes[:, cN:], **TOL_GRAD)
@@ -329,7 +385,7 @@ def phase_kernels(device, dim):
             raise PhaseError(f"{label}: nnz {int(nnz)} != {int(r_nnz)}")
         out["nnz"] = int(nnz)
         out["ms"] = cuda_ms(lambda: ft.fused_scatter(*args, **kw), 5)
-        out["plain_ms"] = cuda_ms(lambda: ft._scatter_plain(*args, G_t, True, margin, gnorm), 2)
+        out["plain_ms"] = cuda_ms(lambda: ft._scatter_plain(*args, G_t, solve, margin, gnorm), 2)
         cases.append(out)
 
     def gather_case(label, margin, with_N, with_grad, seed, opts=None):
@@ -342,9 +398,14 @@ def phase_kernels(device, dim):
                                         None, True, margin, False)
         field = rand(rng, grid.n_nodes, dim)
         # the N-gather reads the gradient's field, or a field of its own
-        # with the option ``cN``
+        # with the option ``cN``; with ``grad_of_N`` the gradient is that of
+        # the N-field's first d columns, a separate tensor (the u-pw steps'
+        # [dU | θ] with ∇dU: the kernel's reuse of the N-sums for a gradient
+        # of the same field must not fire)
         cN = (opts or {}).get("cN")
         gN = rand(rng, grid.n_nodes, cN) if cN else field
+        if (opts or {}).get("grad_of_N"):
+            field = gN[:, :dim].contiguous()
         args = (grid, box, params, x_t, lam_t, act_t)
         kw = dict(gN=gN if with_N else None, g_grad=field if with_grad else None,
                   margin=margin)
@@ -499,23 +560,26 @@ def phase_main_path(device, dim):
     return grid, p0, p2, mats, cfg, h, counts
 
 
-def _parity(pf, pw, h, label):
+def _by_pid_fields(pp, names):
+    """Particle ids and the named fields of the active particles, by pid."""
+    act = pp.active
+    pid = pp.pid[act]
+    o = torch.argsort(pid)
+    return pid[o], [getattr(pp, n)[act][o] for n in names]
+
+
+def _parity(pf, pw, h, label, names=("x", "v")):
     """Largest position difference over h and velocity difference over the
-    largest speed, between two runs matched by pid over active particles."""
-
-    def by_pid(pp):
-        act = pp.active
-        pid = pp.pid[act]
-        o = torch.argsort(pid)
-        return pp.x[act][o], pp.v[act][o], pid[o]
-
-    xf, vf, pid_f = by_pid(pf)
-    xw, vw, pid_w = by_pid(pw)
+    largest speed, between two runs matched by pid over active particles
+    (then the fields of ``names`` beyond x and v, by pid)."""
+    pid_f, got = _by_pid_fields(pf, names)
+    pid_w, ref = _by_pid_fields(pw, names)
     if pid_f.shape != pid_w.shape or not bool((pid_f == pid_w).all()):
         raise PhaseError(f"{label}: particle sets differ")
+    (xf, vf), (xw, vw) = got[:2], ref[:2]
     rel_dx = float((xf - xw).abs().max()) / h
     v_scale = max(float(vw.abs().max()), 1e-12)
-    return rel_dx, float((vf - vw).abs().max()) / v_scale
+    return (rel_dx, float((vf - vw).abs().max()) / v_scale, *zip(got[2:], ref[2:]))
 
 
 def phase_parity(grid, p0, mats, cfg, h):
@@ -774,12 +838,12 @@ def _implicit_steps(label, p, grid, mats, cfg, steps, timed=None):
     return p, hist
 
 
-def _residual_costs(p, grid, mats, cfg, reps=10):
+def _residual_costs(step_without_newton, reps=10):
     """Host ms of one residual of the Newton loop and of one J·v (forward
     mode, primal and tangent), each synchronised, and ‖R₀‖, at the step's
     first iterate: the residual is taken from ``solvers.newton_krylov``'s
-    arguments in a step that runs no Newton iteration."""
-    from nlpartsol_tpu_torch.formulations.implicit import implicit_step
+    arguments in a step that runs no Newton iteration
+    (``step_without_newton()``)."""
     from nlpartsol_tpu_torch.ops import solvers
 
     seen, real = {}, solvers.newton_krylov
@@ -790,8 +854,7 @@ def _residual_costs(p, grid, mats, cfg, reps=10):
 
     solvers.newton_krylov = spy
     try:
-        implicit_step(p, grid, mats, cfg.replace(newton_maxiter=0),
-                      torch.zeros(grid.dim, dtype=p.x.dtype, device=p.x.device))
+        step_without_newton()
     finally:
         solvers.newton_krylov = real
     R, x0 = seen["residual"], seen["x0"]
@@ -819,6 +882,7 @@ def phase_implicit(device, dim):
     from torch.profiler import ProfilerActivity, profile
 
     from nlpartsol_tpu_torch.formulations.explicit import to_slot_layout
+    from nlpartsol_tpu_torch.formulations.implicit import implicit_step
     from nlpartsol_tpu_torch.ops import fused_transfer as ft
     from nlpartsol_tpu_torch.ops import solvers
 
@@ -850,7 +914,27 @@ def phase_implicit(device, dim):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _implicit_steps(label, p2, grid, mats, cfg, 1)
         torch.cuda.synchronize()
-    costs = _residual_costs(p2, grid, mats, cfg)
+    costs = _residual_costs(lambda: implicit_step(
+        p2, grid, mats, cfg.replace(newton_maxiter=0),
+        torch.zeros(grid.dim, dtype=p2.x.dtype, device=p2.x.device)))
+
+    say(phase=label, grid="x".join(map(str, grid.dims)), particles=p0.count,
+        slots=cfg.active_box.n_slots, dt=cfg.dt, warmup_steps=spec["warm"], steps=steps,
+        ms_per_step=1e3 * seconds / steps, step_ms=times, nnz_per_step=total_nnz / steps,
+        nnz_per_s=total_nnz / seconds,
+        newton_iters=[h[0] for h in hist], cg_iters=[h[1] for h in hist],
+        newton_residual=[h[3] for h in hist], r0_norm_next_step=costs["r0_norm"],
+        converged=True, lost=0, host_syncs_per_step=sum(syncs.values()) / steps,
+        host_syncs=syncs, launches=counts, launches_expected=want, peak_device_bytes=peak,
+        host_ms_per_residual=costs["residual_ms"], host_ms_per_jv=costs["jv_ms"],
+        profiled_step=_profiled_step(prof, float(np.median(times)), label))
+    return grid, p1, mats, cfg, h, counts, steps
+
+
+def _profiled_step(prof, host_ms, label):
+    """Device time of a profiled step (CUDA events only), its share in the
+    transfer kernels, its busy share against ``host_ms``, and its top
+    kernels."""
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
@@ -862,21 +946,11 @@ def phase_implicit(device, dim):
         raise PhaseError(f"{label}: torch.profiler recorded no device time")
     lme_us = sum(dev_us(e) for e in kernels if "lme_" in e.key)
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
-    say(phase=label, grid="x".join(map(str, grid.dims)), particles=p0.count,
-        slots=cfg.active_box.n_slots, dt=cfg.dt, warmup_steps=spec["warm"], steps=steps,
-        ms_per_step=1e3 * seconds / steps, step_ms=times, nnz_per_step=total_nnz / steps,
-        nnz_per_s=total_nnz / seconds,
-        newton_iters=[h[0] for h in hist], cg_iters=[h[1] for h in hist],
-        newton_residual=[h[3] for h in hist], r0_norm_next_step=costs["r0_norm"],
-        converged=True, lost=0, host_syncs_per_step=sum(syncs.values()) / steps,
-        host_syncs=syncs, launches=counts, launches_expected=want, peak_device_bytes=peak,
-        host_ms_per_residual=costs["residual_ms"], host_ms_per_jv=costs["jv_ms"],
-        profiled_step=dict(
-            device_ms=1e-3 * total_us, device_busy_share=1e-3 * total_us / float(np.median(times)),
-            lme_kernel_ms=1e-3 * lme_us, lme_kernel_share=lme_us / total_us,
-            device_kernels=sum(e.count for e in kernels),
-            top=[dict(name=e.key[:60], count=e.count, device_ms=1e-3 * dev_us(e)) for e in top]))
-    return grid, p1, mats, cfg, h, counts, steps
+    return dict(device_ms=1e-3 * total_us, device_busy_share=1e-3 * total_us / host_ms,
+                lme_kernel_ms=1e-3 * lme_us, lme_kernel_share=lme_us / total_us,
+                device_kernels=sum(e.count for e in kernels),
+                top=[dict(name=e.key[:60], count=e.count, device_ms=1e-3 * dev_us(e))
+                     for e in top])
 
 
 def phase_implicit_parity(grid, p1, mats, cfg, h):
@@ -982,6 +1056,474 @@ def phase_implicit_roofline(grid, p, mats, cfg, counts, steps):
         (2 * d + 1) * b_act + b_idle + 3 * d * b_nodes + 3 * d * b_all, tests + nnz * per_edge)
     say(phase="roofline_implicit" + _suffix(d), slots=box.n_slots, active=n_active,
         window_offsets=n_offs, nnz=nnz, newton_iterations_per_active_slot=iters / n_active,
+        rows=[dict(name=r["name"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                   launches_per_step=r["launches_per_step"]) for r in rows])
+    return rows
+
+
+# The soil-water mixture (u-pw) steps: scripts/bench_upw.py's problems,
+# rebuilt in numpy at their widths — bench.build_problem(n, ppc=2) with the
+# box of ``build_problem`` (2D: offset n/4 − 2, n/2 + 4 cells, capacity 6),
+# Neo-Hookean soil (E 1e7, ν 0.3, ρ 2700) and compressible water (ρ 1000,
+# K_f 2.2e7), φ_s0 0.6, φ_f0 0.4, k 1e-5, gravity (0, −9.81), LME γ=3, fused
+# engine: explicit 512², dt = 0.25·h/c_mix with c_mix = √((K_f/φ_f0)/1700),
+# local re-bin every step; implicit 256², dt 20× that, Newton-GMRES.  Depth:
+# warm-up and timed steps, parity steps (the script times 16 explicit and 8
+# implicit steps).
+UPW = dict(n_side=512, warm=4, steps=16, parity_steps=8)
+UPW_IMPLICIT = dict(n_side=256, warm=1, steps=3, parity_steps=2, parity_n_side=128)
+# per explicit step: 3 scatters and 5 gathers, by launch key
+UPW_LAUNCHES = {"lme_scatter2d:solve": 1, "lme_scatter2d:G": 2, "lme_gather2d:N+grad": 1,
+                "lme_gather2d:grad": 2, "lme_gather2d:N": 2}
+C_MIX = float(np.sqrt((2.2e7 / 0.4) / 1700.0))
+
+
+def build_upw(device, implicit, n_side=None):
+    from nlpartsol_tpu_torch.formulations import upw
+    from nlpartsol_tpu_torch.models import materials as M
+
+    spec = UPW_IMPLICIT if implicit else UPW
+    grid, p, _, cfg_e, h = build_problem(2, n_side or spec["n_side"], device)
+    mats = M.material_table(
+        [M.material(kind="Neo-Hookean-Wriggers", E=1e7, nu=0.3, rho0=2700.0),
+         M.material(kind="Newtonian-Fluid-Compressible", rho0=1000.0, compressibility=2.2e7)],
+        device=device)
+    mix = upw.make_mixture_table(
+        [dict(soil_id=0, water_id=1, phi_s0=0.6, phi_f0=0.4, permeability=1e-5)], device=device)
+    p = upw.init_mixture_state(p, mats, mix)
+    dt = 0.25 * h / C_MIX
+    common = dict(lme_params=cfg_e.lme_params, kinds=cfg_e.kinds, transfer="fused",
+                  active_box=cfg_e.active_box)
+    cfg = (upw.UpwImplicitConfig(dt=20 * dt, **common) if implicit
+           else upw.UpwConfig(dt=dt, **common))
+    return grid, p, mats, mix, cfg, h
+
+
+def _upw_body(p):
+    return torch.tensor([0.0, -9.81], dtype=p.x.dtype, device=p.x.device)
+
+
+def _check_upw(label, p, lost):
+    act = p.active
+    for name in ("x", "v", "F", "pw"):
+        if not bool(torch.isfinite(getattr(p, name)[act]).all()):
+            raise PhaseError(f"{label}: non-finite {name}")
+    if int(lost) != 0:
+        raise PhaseError(f"{label}: {int(lost)} particles lost")
+
+
+def phase_upw(device):
+    """The explicit u-pw step through ``upw.run`` (``to_slot_layout`` + a
+    loop with no host read): warm-up, then timed steps with the launch
+    counts set to 0 just before and read just after (3 scatters and 5
+    gathers a step)."""
+    from nlpartsol_tpu_torch.formulations import upw
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+
+    grid, p0, mats, mix, cfg, h = build_upw(device, implicit=False)
+    body = _upw_body(p0)
+    p1, _ = upw.run(p0, grid, mats, mix, cfg, UPW["warm"], body)
+    steps = UPW["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    ft.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p2, diag = upw.run(p1, grid, mats, mix, cfg, steps, body)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(ft.launch_counts)
+    _check_upw("upw", p2, diag["lost"].sum())
+    if int(p2.active.sum()) != p0.count:
+        raise PhaseError(f"upw: {int(p2.active.sum())} active particles of {p0.count}")
+    want = {k: n * steps for k, n in UPW_LAUNCHES.items()}
+    if counts != want:
+        raise PhaseError(f"upw: launch counts {counts}, expected {want}")
+    total_nnz = int(diag["nnz"].long().sum())
+    pw = p2.pw[p2.active]
+    say(phase="upw", grid="x".join(map(str, grid.dims)), particles=p0.count,
+        slots=cfg.active_box.n_slots, dt=cfg.dt, warmup_steps=UPW["warm"], steps=steps,
+        ms_per_step=1e3 * seconds / steps, nnz_per_step=total_nnz / steps,
+        nnz_per_s=total_nnz / seconds, lost=0, launches=counts,
+        launches_per_step={k: v / steps for k, v in counts.items()},
+        peak_device_bytes=torch.cuda.max_memory_allocated(),
+        pw_min=float(pw.min()), pw_max=float(pw.max()), finite=True)
+    return grid, p0, p2, mats, mix, cfg, h, counts
+
+
+def _upw_parity(pf, pw_, h, label, pw_tol):
+    """rel_dx (over h), rel_dv (over the largest speed) and the pore
+    pressure's largest difference over its largest magnitude, by pid."""
+    rel_dx, rel_dv, (pf_, pww) = _parity(pf, pw_, h, label, ("x", "v", "pw"))
+    pw_scale = max(float(pww.abs().max()), 1e-30)
+    rel_dpw = float((pf_ - pww).abs().max()) / pw_scale
+    ok = rel_dx < 1e-3 and rel_dv < 1e-2 and rel_dpw < pw_tol
+    return dict(rel_dx=rel_dx, rel_dv=rel_dv, rel_dpw=rel_dpw, pw_scale=pw_scale,
+                limit_dx=1e-3, limit_dv=1e-2, limit_dpw=pw_tol), ok
+
+
+def column_problem(device):
+    """tests/test_upw.py::column_setup rebuilt in numpy: 2×10 cells of h =
+    0.1, 2×2 particles a cell, bottom fixed in y, no x motion, Neo-Hookean
+    soil (E 1e7, ν 0.3, ρ 2700) and water (ρ 1000, K_f 2.2e9), k = 1e-5;
+    the box over the whole grid at capacity 8, LME γ=3, dt = 0.2·h/c_mix
+    (test_upw.py::test_upw_pallas_parity)."""
+    from nlpartsol_tpu_torch.formulations import upw
+    from nlpartsol_tpu_torch.models import materials as M
+    from nlpartsol_tpu_torch.ops import windowed
+    from nlpartsol_tpu_torch.shapefun import lme
+    from nlpartsol_tpu_torch.types import Grid, make_particles
+
+    nx, ny, h, ppc = 2, 10, 0.1, 2
+    dims = (nx + 1, ny + 1)
+    ids = np.arange(dims[0] * dims[1]).reshape(dims)
+    fixed = np.zeros((ids.size, 2), bool)
+    fixed[ids[:, 0], 1] = True
+    fixed[:, 0] = True
+    grid = Grid(dims=dims, spacing=h, origin=(0.0, 0.0),
+                dirichlet_mask=torch.as_tensor(fixed, device=device),
+                dirichlet_value=torch.zeros((ids.size, 2), device=device))
+    i, j, a, b = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(ppc), np.arange(ppc),
+                             indexing="ij")
+    x = np.stack([(i + (a + 0.5) / ppc) * h, (j + (b + 0.5) / ppc) * h], -1).reshape(-1, 2)
+    vol = (h / ppc) ** 2
+    p = make_particles(x.astype(np.float32), mass=np.full(len(x), vol, np.float32),
+                       vol0=np.full(len(x), vol, np.float32), device=device)
+    mats = M.material_table(
+        [M.material(kind="Neo-Hookean-Wriggers", E=1e7, nu=0.3, rho0=2700.0),
+         M.material(kind="Newtonian-Fluid-Compressible", rho0=1000.0, compressibility=2.2e9)],
+        device=device)
+    mix = upw.make_mixture_table(
+        [dict(soil_id=0, water_id=1, phi_s0=0.6, phi_f0=0.4, permeability=1e-5)], device=device)
+    cfg = upw.UpwConfig(dt=0.2 * h / float(np.sqrt((2.2e9 / 0.4) / 1700.0)),
+                        lme_params=lme.LMEParams(gamma=3.0), kinds=(M.NEO_HOOKEAN,),
+                        transfer="fused", active_box=windowed.full_box(grid, capacity=8))
+    return grid, upw.init_mixture_state(p, mats, mix), mats, mix, cfg, h
+
+
+def phase_upw_parity(grid, p0, mats, mix, cfg, h):
+    """The same explicit u-pw steps from the same state through the fused
+    kernels and the windowed engine on the card, matched by pid.  The 512²
+    problem, 8 steps: rel_dx < 1e-3, rel_dv < 1e-2 (bench.py's gate between
+    engines) and pw within 1e-4 of its largest magnitude; tests/test_upw.py's
+    column, 25 steps: x within 1e-6, pw within 1e-5 of its largest
+    magnitude, φ_f within 1e-6 (the JAX package's limits between its
+    engines on that problem, test_upw.py:369-373).  On the 512² problem the
+    strain increments are a few 1e-6, near float32's resolution of F, and
+    the pore pressure carries that rounding: the two engines differ by
+    about 1e-5 of it in float32 and by 4e-16 in float64 (PERF.md, PR 6)."""
+    from nlpartsol_tpu_torch.formulations import upw
+
+    steps = UPW["parity_steps"]
+    body = _upw_body(p0)
+    pf, diag_f = upw.run(p0, grid, mats, mix, cfg, steps, body)
+    _check_upw("upw_parity:fused", pf, diag_f["lost"].sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pw_, diag_w = upw.run(p0, grid, mats, mix, cfg.replace(transfer="windowed"), steps, body)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _check_upw("upw_parity:windowed", pw_, diag_w["lost"].sum())
+    out, ok = _upw_parity(pf, pw_, h, "upw_parity", 1e-4)
+    # the JAX package's own parity problem and limits
+    cg, cp, cm, cmix, ccfg, ch = column_problem(p0.x.device)
+    cbody = _upw_body(cp)
+    col = {}
+    for transfer in ("fused", "windowed"):
+        q, dq = upw.run(cp, cg, cm, cmix, ccfg.replace(transfer=transfer), 25, cbody)
+        _check_upw(f"upw_parity:column:{transfer}", q, dq["lost"].sum())
+        col[transfer] = _by_pid_fields(q, ("x", "pw", "phi_f"))
+    (pid_f, (xf, pwf, ff)), (pid_w, (xw, pww, fw)) = col["fused"], col["windowed"]
+    if not bool((pid_f == pid_w).all()):
+        raise PhaseError("upw_parity:column: particle sets differ")
+    pw_scale = max(float(pww.abs().max()), 1.0)
+    column = dict(steps=25, particles=cp.count, dx=float((xf - xw).abs().max()),
+                  rel_dpw=float((pwf - pww).abs().max()) / pw_scale,
+                  dphi_f=float((ff - fw).abs().max()), pw_scale=pw_scale,
+                  limits=dict(dx=1e-6, rel_dpw=1e-5, dphi_f=1e-6))
+    col_ok = (column["dx"] <= 1e-6 and column["rel_dpw"] <= 1e-5 and column["dphi_f"] <= 1e-6
+              and pw_scale > 1.0)
+    say(phase="upw_parity", steps=steps, **out, nnz_fused=int(diag_f["nnz"].long().sum()),
+        nnz_windowed=int(diag_w["nnz"].long().sum()), windowed_ms_per_step=1e3 * seconds / steps,
+        windowed_peak_device_bytes=torch.cuda.max_memory_allocated(), column=column,
+        ok=ok and col_ok)
+    if not (ok and col_ok):
+        raise PhaseError(f"upw_parity: {out}, column {column}")
+
+
+def upw_implicit_launches(steps, n, L, K):
+    """The launches of ``steps`` fused implicit u-pw steps with n Newton
+    iterations, L GMRES iterations and K GMRES convergence checks in all:
+    the formula of formulations/upw.py's docstring."""
+    R = steps + 5 * n
+    V = n + K + 21 * L // 20
+    return {"lme_scatter2d:solve+gnorm": steps, "lme_scatter2d:gnorm": steps,
+            "lme_gather2d:N+grad": 2 * steps + R + 2 * V, "lme_gather2d:grad": 2 * steps + R + 2 * V,
+            "lme_scatter2d:G": 2 * R + 4 * V, "lme_gather2d:N": steps}
+
+
+def _upw_implicit_steps(label, p, grid, mats, mix, cfg, steps, timed=None):
+    """``steps`` implicit u-pw steps; each must end its Newton loop by the
+    reference's rules and lose nothing.  Returns the particles and per step
+    (Newton, GMRES, nnz, residual, GMRES convergence checks, converged)."""
+    from nlpartsol_tpu_torch.formulations import upw
+    from nlpartsol_tpu_torch.ops import solvers
+
+    body = _upw_body(p)
+    hist = []
+    for i in range(steps):
+        k0 = solvers.host_syncs["krylov"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, dg = upw.upw_newmark_step(p, grid, mats, mix, cfg, body)
+        torch.cuda.synchronize()
+        if timed is not None:
+            timed.append(1e3 * (time.perf_counter() - t0))
+        # the reference's own stopping rules end the loop (tolerance, or a
+        # stall at the float32 floor) before newton_maxiter; whether the
+        # stall meets its converged rule (‖R‖ ≤ 1e-2·‖R₀‖) is reported: on
+        # this problem the JAX package's step stalls above it as the port's
+        # does (PERF.md, PR 6)
+        if dg["newton_iters"] >= cfg.newton_maxiter or not np.isfinite(
+                float(dg["newton_residual"])):
+            raise PhaseError(f"{label}: step {i} ran out of Newton iterations "
+                             f"(residual {float(dg['newton_residual'])})")
+        _check_upw(label, p, dg["lost"])
+        hist.append((dg["newton_iters"], dg["cg_iters"], int(dg["nnz"]),
+                     float(dg["newton_residual"]), solvers.host_syncs["krylov"] - k0,
+                     bool(dg["converged"])))
+    return p, hist
+
+
+def phase_upw_implicit(device):
+    """The implicit u-pw step on the fused kernels: a warm-up step, then
+    timed steps with the launch counts and host syncs set to 0 just before
+    and read just after, launches held to the formula of
+    formulations/upw.py, one profiled step, host ms per residual and per
+    J·v."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nlpartsol_tpu_torch.formulations import upw
+    from nlpartsol_tpu_torch.formulations.explicit import to_slot_layout
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+    from nlpartsol_tpu_torch.ops import solvers
+
+    spec = UPW_IMPLICIT
+    grid, p0, mats, mix, cfg, h = build_upw(device, implicit=True)
+    p1, _ = _upw_implicit_steps("upw_implicit", to_slot_layout(p0, grid, cfg.active_box), grid,
+                                mats, mix, cfg, spec["warm"])
+    torch.cuda.reset_peak_memory_stats()
+    ft.reset_launch_counts()
+    solvers.reset_host_syncs()
+    times = []
+    steps = spec["steps"]
+    p2, hist = _upw_implicit_steps("upw_implicit", p1, grid, mats, mix, cfg, steps, times)
+    counts, syncs = dict(ft.launch_counts), dict(solvers.host_syncs)
+    n_tot, l_tot = sum(x[0] for x in hist), sum(x[1] for x in hist)
+    want = upw_implicit_launches(steps, n_tot, l_tot, syncs.get("krylov", 0))
+    if counts != want:
+        raise PhaseError(f"upw_implicit: launch counts {counts}, expected {want}")
+    seconds = 1e-3 * sum(times)
+    total_nnz = sum(x[2] for x in hist)
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _upw_implicit_steps("upw_implicit", p2, grid, mats, mix, cfg, 1)
+        torch.cuda.synchronize()
+    costs = _residual_costs(lambda: upw.upw_newmark_step(
+        p2, grid, mats, mix, cfg.replace(newton_maxiter=0), _upw_body(p2)), reps=5)
+
+    say(phase="upw_implicit", grid="x".join(map(str, grid.dims)), particles=p0.count,
+        slots=cfg.active_box.n_slots, dt=cfg.dt, warmup_steps=spec["warm"], steps=steps,
+        depth_cut="1 warm-up + 3 timed steps (scripts/bench_upw.py --implicit times 8)",
+        ms_per_step=1e3 * seconds / steps, step_ms=times, nnz_per_step=total_nnz / steps,
+        nnz_per_s=total_nnz / seconds, newton_iters=[x[0] for x in hist],
+        gmres_iters=[x[1] for x in hist], gmres_checks=[x[4] for x in hist],
+        newton_residual=[x[3] for x in hist], converged=[x[5] for x in hist], lost=0,
+        host_syncs_per_step=sum(syncs.values()) / steps, host_syncs=syncs, launches=counts,
+        launches_expected=want, peak_device_bytes=peak,
+        host_ms_per_residual=costs["residual_ms"], host_ms_per_jv=costs["jv_ms"],
+        profiled_step=_profiled_step(prof, float(np.median(times)), "upw_implicit"))
+    return grid, p1, p2, mats, mix, cfg, h, counts, steps
+
+
+def phase_upw_implicit_parity(device):
+    """The same implicit u-pw steps from the same state on the fused kernels
+    and on the windowed engine on the card, matched by pid: rel_dx < 1e-3,
+    rel_dv < 1e-2, pw within 1e-2 of its largest magnitude
+    (tests/test_upw.py:282-285), equal Newton iterations; GMRES totals
+    reported beside them.  At 128² (the problem of ``upw_implicit`` at half
+    the width): the windowed engine takes 36-46 s a step there, about 4×
+    that at 256²."""
+    from nlpartsol_tpu_torch.formulations.explicit import to_slot_layout
+
+    steps = UPW_IMPLICIT["parity_steps"]
+    grid, p0, mats, mix, cfg, h = build_upw(device, implicit=True,
+                                            n_side=UPW_IMPLICIT["parity_n_side"])
+    p1 = to_slot_layout(p0, grid, cfg.active_box)
+    pf, hist_f = _upw_implicit_steps("upw_implicit_parity:fused", p1, grid, mats, mix, cfg, steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    pw_, hist_w = _upw_implicit_steps("upw_implicit_parity:windowed", p1, grid, mats, mix,
+                                      cfg.replace(transfer="windowed"), steps, times)
+    out, ok = _upw_parity(pf, pw_, h, "upw_implicit_parity", 1e-2)
+    newton_f, newton_w = [x[0] for x in hist_f], [x[0] for x in hist_w]
+    ok = ok and newton_f == newton_w
+    say(phase="upw_implicit_parity", steps=steps, grid="x".join(map(str, grid.dims)), **out,
+        newton_fused=newton_f, newton_windowed=newton_w, gmres_fused=[x[1] for x in hist_f],
+        gmres_windowed=[x[1] for x in hist_w], nnz_fused=[x[2] for x in hist_f],
+        nnz_windowed=[x[2] for x in hist_w], windowed_ms_per_step=float(np.mean(times)),
+        windowed_peak_device_bytes=torch.cuda.max_memory_allocated(), ok=ok)
+    if not ok:
+        raise PhaseError(f"upw_implicit_parity: {out}, Newton {newton_f} vs {newton_w}")
+
+
+def _recorded_calls(fn):
+    """Run ``fn()`` with every fused_scatter / fused_gather call recorded in
+    order: (launch key it counted under, kind, args, kwargs)."""
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+
+    calls, real = [], dict(scatter=ft.fused_scatter, gather=ft.fused_gather)
+
+    def recorder(kind):
+        def call(*args, **kw):
+            before = dict(ft.launch_counts)
+            out = real[kind](*args, **kw)
+            key = next(k for k, n in ft.launch_counts.items() if n != before.get(k, 0))
+            calls.append((key, kind, args, kw))
+            return out
+        return call
+
+    ft.fused_scatter, ft.fused_gather = recorder("scatter"), recorder("gather")
+    try:
+        fn()
+    finally:
+        ft.fused_scatter, ft.fused_gather = real["scatter"], real["gather"]
+    torch.cuda.synchronize()
+    return calls
+
+
+# The calls of one u-pw step in the order the step makes them: (label, launch
+# key); rows of ``phase_upw_roofline``.
+UPW_CALLS = [("solve: m, C, Δu and v momenta, θ (7 channels)", "lme_scatter2d:solve"),
+             ("N+grad: [Δu | θ] with ∇Δu", "lme_gather2d:N+grad"),
+             ("grad: ∇v", "lme_gather2d:grad"),
+             ("grad: ∇θ (θ in row 0)", "lme_gather2d:grad"),
+             ("G: jacobian-rate channel + mixture forces", "lme_scatter2d:G"),
+             ("N: accelerations", "lme_gather2d:N"),
+             ("G: zero channel + flow row", "lme_scatter2d:G"),
+             ("N: θ̇", "lme_gather2d:N")]
+# the implicit step's calls with newton_maxiter = 0 (set-up, r₀, the local
+# state at the iterate, the last N-gather).  The residual's gathers read the
+# iterate z = 0 there, so the gathers' rows take the set-up calls of the same
+# variants on non-zero fields; the G-scatters' rows take r₀'s
+UPW_IMPLICIT_CALLS = [("solve+gnorm: m, C, θ, v and a momenta, stiffness (8 channels)",
+                       "lme_scatter2d:solve+gnorm"),
+                      ("gnorm, fixed λ: Darcy weight (1 channel)", "lme_scatter2d:gnorm"),
+                      ("N+grad: [α₂u̇ₙ + α₃üₙ | θₙ] with ∇(velocity constant)",
+                       "lme_gather2d:N+grad"),
+                      ("grad: ∇θₙ (θₙ in row 0)", "lme_gather2d:grad"),
+                      (None, "lme_gather2d:N+grad"),
+                      (None, "lme_gather2d:grad"),
+                      ("G: rate channel + mixture G (residual)", "lme_scatter2d:G"),
+                      ("G: zero channel + flow row (residual)", "lme_scatter2d:G"),
+                      (None, "lme_gather2d:N+grad"),
+                      (None, "lme_gather2d:grad"),
+                      ("N: dU, v and a increments (6 channels)", "lme_gather2d:N")]
+
+
+def phase_upw_roofline(grid, p, mats, mix, cfg, counts, steps, implicit):
+    """Each call of the u-pw step at its shapes and on its state (recorded
+    from one step on the path's last state) against its plain version:
+    error, time, plain time, bound; launches from the path's timed run (a
+    key the step calls twice a step is split evenly between its rows)."""
+    from nlpartsol_tpu_torch.formulations import upw
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+
+    d = grid.dim
+    ops_of = OPS[d]
+    box, params = cfg.active_box, cfg.lme_params
+    C, nc = box.capacity, box.n_cells
+    body = _upw_body(p)
+    if implicit:
+        spec, tag, path = UPW_IMPLICIT_CALLS, "@upw_implicit", "upw_implicit"
+        calls = _recorded_calls(lambda: upw.upw_newmark_step(
+            p, grid, mats, mix, cfg.replace(newton_maxiter=0), body))
+    else:
+        spec, tag, path = UPW_CALLS, "@upw", "upw"
+        calls = _recorded_calls(lambda: upw.upw_step(p, grid, mats, mix, cfg, body))
+    got_keys = [key for key, _, _, _ in calls]
+    if got_keys != [key for _, key in spec]:
+        raise PhaseError(f"{path} roofline: calls {got_keys}, expected {[k for _, k in spec]}")
+    n_offs = len(ft._geom(grid, params, 0).offsets)
+    n_active = int(p.active.sum())
+    b_act, b_idle, b_all, b_nodes = _slot_bytes(p, box, grid.n_nodes)
+    tests = n_active * n_offs * ops_of["test"]
+    per_eval = ops_of["f"] + 1 + ops_of["mom"]
+    slot_io = 3 * d + 1
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=p.x.device)
+    rows = []
+    per_key = {}
+    for label, key in spec:
+        if label is not None:
+            per_key[key] = per_key.get(key, 0) + 1
+    # every call of a step runs at margin 0 on the same positions: one nnz
+    _, _, cnt = ft.scatter_cuda(*calls[0][2], **calls[0][3])
+    nnz = int(cnt[0])
+    for (label, key), (_, kind, args, kw) in zip(spec, calls):
+        if label is None:
+            continue
+        if kind == "scatter":
+            G_t, solve, gnorm = kw.get("G_t"), kw.get("solve", True), kw.get("gnorm", False)
+            cN = args[6].shape[0]
+            if solve:
+                iters = int(ft.scatter_cuda(*args, **kw)[2][1])
+                ops = tests + iters * (nnz / n_active) * per_eval
+            else:
+                ops = tests + nnz * per_eval
+            ops += nnz * (ops_of["n"] + cN * ops_of["ch"])
+            if G_t is not None or gnorm:
+                ops += nnz * ops_of["dn"]
+            ops += nnz * ((ops_of["g"] if G_t is not None else 0) + (ops_of["gn"] if gnorm else 0))
+            cout = cN + (d if G_t is not None else 0) + (1 if gnorm else 0)
+            n_bytes = ((slot_io + cN + (d * d if G_t is not None else 0)) * b_act
+                       + (2 * d + 1) * b_idle + cout * b_nodes)
+            checks = [("nodes", lambda o, cN=cN: o[0][:, :cN], TOL_N)]
+            if cout > cN:
+                checks.append(("grad", lambda o, cN=cN: o[0][:, cN:], TOL_GRAD))
+
+            def fn_kernel(a=args, k=kw):
+                return ft.fused_scatter(*a, **k)
+
+            def fn_plain(a=args, G_t=G_t, solve=solve, gnorm=gnorm):
+                return ft._scatter_plain(*a, G_t, solve, 0, gnorm)
+        else:
+            gN, g_grad = kw.get("gN"), kw.get("g_grad")
+            cN = 0 if gN is None else gN.shape[1]
+            if g_grad is not None:
+                per_edge = per_eval + ops_of["n"] + ops_of["dn"] + cN * ops_of["ch"] + ops_of["grad"]
+            else:
+                per_edge = ops_of["f"] + 1 + 1 + ops_of["n"] + cN * ops_of["ch"]
+            ops = tests + nnz * per_edge
+            n_bytes = ((2 * d + 1) * b_act + b_idle
+                       + (cN + (d if g_grad is not None else 0)) * b_nodes
+                       + (cN + (d * d if g_grad is not None else 0)) * b_all)
+            checks = []
+            if gN is not None:
+                checks.append(("N", lambda o: o[0], TOL_N))
+            if g_grad is not None:
+                checks.append(("grad", lambda o: o[1], TOL_GRAD))
+
+            def fn_kernel(a=args, k=kw):
+                return ft.fused_gather(*a, **k)
+
+            def fn_plain(a=args, gN=gN, g_grad=g_grad):
+                return ft._gather_plain(*a, gN, g_grad, 0)
+        launches = counts[key] // per_key[key]  # each row's call: once per key call
+        _kernel_row(rows, f"{key}{tag} ({label})", key, d, fn_kernel, fn_plain, checks, n_bytes,
+                    ops, launches, flush, launches_per_step=launches / steps, path=path)
+    say(phase="roofline" + tag.replace("@", "_"), slots=box.n_slots, active=n_active,
+        window_offsets=n_offs,
         rows=[dict(name=r["name"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                    launches_per_step=r["launches_per_step"]) for r in rows])
     return rows
@@ -1186,7 +1728,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="kernels,main_path,parity,roofline,implicit,"
                     "implicit_parity,kernels3d,main_path3d,parity3d,roofline3d,implicit3d,"
-                    "implicit_parity3d,probes,large3d,large",
+                    "implicit_parity3d,upw,upw_parity,upw_implicit,upw_implicit_parity,probes,"
+                    "large3d,large",
                     help="comma-separated phases to run after device and build")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1227,6 +1770,22 @@ def main():
                 rows += phase_implicit_roofline(grid, p1, mats, cfg, counts, steps)
             del p1
             torch.cuda.empty_cache()
+    if phases & {"upw", "upw_parity"}:
+        grid, p0, p2, mats, mix, cfg, h, counts = phase_upw(device)
+        if "upw_parity" in phases:
+            phase_upw_parity(grid, p0, mats, mix, cfg, h)
+        if "roofline" in phases:
+            rows += phase_upw_roofline(grid, p2, mats, mix, cfg, counts, UPW["steps"], False)
+        del p0, p2
+        torch.cuda.empty_cache()
+    if phases & {"upw_implicit", "upw_implicit_parity"}:
+        grid, p1, p2, mats, mix, cfg, h, counts, steps = phase_upw_implicit(device)
+        if "roofline" in phases:
+            rows += phase_upw_roofline(grid, p2, mats, mix, cfg, counts, steps, True)
+        del p1, p2
+        torch.cuda.empty_cache()
+        if "upw_implicit_parity" in phases:
+            phase_upw_implicit_parity(device)
     if "probes" in phases:
         rows += phase_probes(device)
     # the large legs are optional: only with most of the time limit ahead

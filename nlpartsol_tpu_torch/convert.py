@@ -15,6 +15,7 @@ import torch
 
 from .formulations.explicit import ExplicitConfig
 from .formulations.implicit import ImplicitConfig
+from .formulations.upw import MixtureTable, UpwConfig, UpwImplicitConfig
 from .models.materials import MaterialTable
 from .ops.windowed import ActiveBox
 from .shapefun.lme import LMEParams
@@ -50,6 +51,11 @@ def particles_to_numpy(p: Particles) -> dict:
 def materials_from_numpy(arrays: dict, device="cuda") -> MaterialTable:
     """MaterialTable from a dict with one (Nmat,) numpy array per parameter."""
     return _from_dict(MaterialTable, arrays, device)
+
+
+def mixture_from_numpy(arrays: dict, device="cuda") -> MixtureTable:
+    """MixtureTable from a dict with one (Nmix,) numpy array per field."""
+    return _from_dict(MixtureTable, arrays, device)
 
 
 def _bound(v):
@@ -134,3 +140,16 @@ def implicit_config_from_fields(fields: dict) -> ImplicitConfig:
     transfer is the port's ``'fused'``."""
     waiting = {"alme_params": None, "beps_reach": 1}
     return _config_from_fields(ImplicitConfig, fields, waiting)
+
+
+def upw_config_from_fields(fields: dict) -> UpwConfig:
+    """UpwConfig from the static fields of the JAX package's UpwConfig (see
+    :func:`_config_from_fields`)."""
+    return _config_from_fields(UpwConfig, fields, {"alme_params": None, "prebinned": False})
+
+
+def upw_implicit_config_from_fields(fields: dict) -> UpwImplicitConfig:
+    """UpwImplicitConfig from the static fields of the JAX package's
+    UpwImplicitConfig (see :func:`_config_from_fields`)."""
+    return _config_from_fields(UpwImplicitConfig, fields,
+                               {"alme_params": None, "prebinned": False})

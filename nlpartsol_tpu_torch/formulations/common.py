@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import transfer
-from ..shapefun import lme
+from ..shapefun import fem, lme
 from ..types import Grid
 
 
@@ -18,15 +18,28 @@ def shapefun_eval(cfg, grid, p):
             "unstructured background meshes are not ported yet: ROADMAP.md "
             "queue 1, 'Other shape functions, engines and integrators'"
         )
+    check_shapefun(cfg)
     if cfg.shapefun == "lme":
         sf = lme.evaluate(grid, p.x, p.lme_lambda, cfg.lme_params)
         return sf, lme.offsets_for(grid.dim, cfg.lme_params)
-    if cfg.shapefun in ("fem", "gimp", "alme"):
+    return fem.evaluate(grid, p.x), fem.offsets_for(grid.dim)
+
+
+def check_shapefun(cfg):
+    """'lme' on both engines; 'fem' on the windowed engine only, since the
+    fused kernels compute the LME basis (as the JAX package's do)."""
+    if cfg.shapefun in ("gimp", "alme"):
         raise NotImplementedError(
             f"shapefun '{cfg.shapefun}' is not ported yet: ROADMAP.md queue 1, "
-            "'Other shape functions, engines and integrators'"
+            "item 13, 'Other shape functions, engines and integrators'"
         )
-    raise ValueError(f"unknown shapefun {cfg.shapefun}")
+    if cfg.shapefun not in ("lme", "fem"):
+        raise ValueError(f"unknown shapefun {cfg.shapefun}")
+    if cfg.shapefun != "lme" and cfg.transfer == "fused":
+        raise ValueError(
+            f"the fused transfer implements LME only, not shapefun '{cfg.shapefun}': "
+            "use transfer='windowed'"
+        )
 
 
 def make_engine(cfg, grid, sf, offsets, mask):

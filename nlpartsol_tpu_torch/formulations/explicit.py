@@ -24,9 +24,10 @@ device tensors; nothing in a step waits on the host.
 
 Not ported yet (each raises ``NotImplementedError`` naming its slice of
 ROADMAP.md): ``halo``/``axis_name``/``rebin_mode='none'`` (multi-device),
-``damage`` (remaining models), shape functions other than ``lme``, schemes
-other than ``NPC-FS`` and ``transfer='scatter'/'binned'`` (other shape
-functions, engines and integrators).
+``damage`` (remaining models), ``shapefun='gimp'/'alme'``, schemes other
+than ``NPC-FS`` and ``transfer='scatter'/'binned'`` (other shape functions,
+engines and integrators).  ``shapefun='fem'`` runs on the windowed engine;
+the fused kernels compute LME only and refuse it with ``ValueError``.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import lme
 from ..types import Grid, Particles
 from . import kinematics as kin
-from .common import found_lost, make_engine, shapefun_eval
+from .common import check_shapefun, found_lost, make_engine, shapefun_eval
 
 Tensor = torch.Tensor
 
@@ -102,8 +103,7 @@ def _check_supported(cfg: ExplicitConfig, p: Particles):
         raise later(f"damage='{cfg.damage}'", "Remaining models")
     if cfg.scheme != "NPC-FS":
         raise later(f"scheme '{cfg.scheme}'", "Other shape functions, engines and integrators")
-    if cfg.shapefun != "lme":
-        raise later(f"shapefun '{cfg.shapefun}'", "Other shape functions, engines and integrators")
+    check_shapefun(cfg)
     if cfg.transfer in ("scatter", "binned"):
         raise later(f"transfer '{cfg.transfer}'", "Other shape functions, engines and integrators")
     if cfg.transfer not in ("windowed", "fused"):
@@ -273,7 +273,7 @@ def explicit_step(
     x_new = p.x + d_dis_p_smooth
 
     p_out = _advance(p, act, cs, F_n1, J_n1, dFdt_n1, x_new, v_new, a_p,
-                     d_dis_p_smooth, sf["lam"])
+                     d_dis_p_smooth, p.lme_lambda if sf["lam"] is None else sf["lam"])
     ke, se = _energies(p, act, v_new, cs)
     diag = dict(
         nnz=count_nnz(mask),

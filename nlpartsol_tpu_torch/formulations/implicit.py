@@ -36,8 +36,10 @@ condition on the host once per iteration (``solvers.host_syncs``).
 
 Not ported yet (each raises ``NotImplementedError`` naming its item of
 ROADMAP.md queue 1): ``damage`` (item 12), ``halo``/``axis_name`` and
-``rebin_mode='none'`` (item 15), shape functions other than ``lme`` and
-``transfer='scatter'/'binned'`` (item 13).
+``rebin_mode='none'`` (item 15), ``shapefun='gimp'/'alme'`` and
+``transfer='scatter'/'binned'`` (item 13).  ``shapefun='fem'`` runs on the
+windowed engine; the fused kernels compute LME only and refuse it with
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import lme
 from ..types import Grid, Particles
 from . import kinematics as kin
-from .common import found_lost, make_engine, shapefun_eval
+from .common import check_shapefun, found_lost, make_engine, shapefun_eval
 from .explicit import _bin_to_slots, to_slot_layout
 
 Tensor = torch.Tensor
@@ -145,9 +147,7 @@ def _check_supported(cfg: ImplicitConfig, p: Particles):
         raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")
     if cfg.damage is not None:
         raise later(f"damage='{cfg.damage}'", 12, "Remaining models")
-    if cfg.shapefun != "lme":
-        raise later(f"shapefun '{cfg.shapefun}'", 13,
-                    "Other shape functions, engines and integrators")
+    check_shapefun(cfg)
     if cfg.transfer in ("scatter", "binned"):
         raise later(f"transfer '{cfg.transfer}'", 13,
                     "Other shape functions, engines and integrators")
@@ -394,7 +394,8 @@ def implicit_step(
     dis_inc = eng.g2p(N, dU)
     dv = eng.g2p(N, dU_dt + (1.0 - a_blend) * Un_dt)
     da = eng.g2p(N, dU_dt2)
-    p_out = _advance(p, act, cs, F_n1, dFdt_n1, J_n1, dis_inc, dv, da, a_blend, w.sf["lam"])
+    lam = p.lme_lambda if w.sf["lam"] is None else w.sf["lam"]
+    p_out = _advance(p, act, cs, F_n1, dFdt_n1, J_n1, dis_inc, dv, da, a_blend, lam)
     diag_out = dict(
         nnz=count_nnz(w.mask),
         newton_iters=res.iters,

@@ -516,6 +516,22 @@ def _gather_n(v: Tensor, geo) -> Tensor:
                         margin=margin)[0]
 
 
+def _gather_n_grad(v: Tensor, geo):
+    grid, box, params, x_t, lam_t, act_t, margin = geo
+    return fused_gather(grid, box, params, x_t, lam_t, act_t, gN=v.contiguous(),
+                        g_grad=v[:, :grid.dim].contiguous(), margin=margin)
+
+
+def _scatter_ng(c: Tensor, geo) -> Tensor:
+    grid, box, params, x_t, lam_t, act_t, margin = geo
+    d = grid.dim
+    C, nc = box.capacity, box.n_cells
+    fN_t = to_channel_leading(c[:, :c.shape[1] - d * d], C, nc)
+    G_t = to_channel_leading(c[:, c.shape[1] - d * d:], C, nc)
+    return fused_scatter(grid, box, params, x_t, lam_t, act_t, fN_t, G_t=G_t, solve=False,
+                         margin=margin)[0]
+
+
 def _scatter_g(G: Tensor, geo) -> Tensor:
     grid, box, params, x_t, lam_t, act_t, margin = geo
     d = grid.dim
@@ -552,6 +568,38 @@ class GatherN(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, t, _):
         return _gather_n(t, ctx.geo)
+
+
+class GatherNGrad(torch.autograd.Function):
+    """(n_nodes, cN ≥ d) node field f ↦ ((Ns, cN) Σ_A N_A·f_A, (Ns, d, d)
+    Σ_A f_A[:d] ⊗ ∇N_A) at fixed λ: both from one launch, the gradient of
+    the field's first d columns (a copy of its own, so the kernel's reuse of
+    the N-sums for a gradient of the same field never applies)."""
+
+    @staticmethod
+    def forward(v, geo):
+        return _gather_n_grad(v, geo)
+
+    setup_context = staticmethod(_keep_geo)
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        return _gather_n_grad(t, ctx.geo)
+
+
+class ScatterNG(torch.autograd.Function):
+    """(Ns, cN + d·d) slot rows [N channels | G row-major] ↦ the scatter's
+    (n_nodes, cN + d) nodes at fixed λ: Σ_p N_A·f, then Σ_p G·∇N_A."""
+
+    @staticmethod
+    def forward(c, geo):
+        return _scatter_ng(c, geo)
+
+    setup_context = staticmethod(_keep_geo)
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        return _scatter_ng(t, ctx.geo)
 
 
 class ScatterG(torch.autograd.Function):
