@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``nlpartsol_tpu_torch/csrc`` (one ``nvcc`` per
-source, all started together) and drives the port's six paths — the 2D and
-the 3D explicit LME step, the 2D and 3D implicit Newmark step, and the 2D
-explicit and implicit soil-water mixture (u-pw) step, on the fused kernels —
-on the card.  Each phase
+source, all started together) and drives the port's eight paths — the 2D
+and the 3D explicit LME step, the 2D and 3D implicit Newmark step, the 2D
+explicit and implicit soil-water mixture (u-pw) step, and the 2D mixed u-p
+and Discrete Energy-Momentum (DEM) steps, on the fused kernels — on the
+card.  Each phase
 prints one JSON line; any failure ends the run with a non-zero exit code.
 Without a CUDA device the script fails at once.
 
@@ -66,13 +67,46 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              + 3 timed steps (the script times 8), every Newton loop ended by
              its tolerance or stall rule (``converged`` reported), nothing
              lost, launches held to the formula of
-             formulations/upw.py, host syncs, one profiled step
+             formulations/upw.py, host syncs, 5 J·v under the profiler (a
+             whole step is some 600,000 kernels: minutes of profiling)
   upw_implicit_parity
              2 implicit u-pw steps on both engines on the card at 128², by pid:
              rel_dx < 1e-3, rel_dv < 1e-2, pw within 1e-2 of its largest
              magnitude, equal Newton iterations; with ``roofline`` the u-pw
              steps' call variants at their shapes (rows ``…@upw``,
              ``…@upw_implicit``)
+  up         the mixed u-p step on the fused kernels at the width of
+             ``implicit`` (256² nodes, 65,536 particles, capacity-6 box of
+             132² cells), Neo-Hookean E 1e7, ν 0.3, LME γ=3, dt = 2h/c,
+             UpConfig's Newton-GMRES defaults, a local re-bin every step; 1
+             warm-up + 2 timed steps, each Newton loop ended by its tolerance
+             or stall rule (``converged`` reported), nothing lost, launches
+             held to the formula of formulations/up.py, host syncs, host ms
+             per residual and per J·v, 5 J·v under the profiler, and one
+             J·v against a float64 central difference at 32² (float64 on CPU
+             tensors: the plain versions and this torch build's forward mode),
+             and the card's float32 J·v through the kernels against the plain
+             versions' float32 J·v at the same x and v (``JV_F32_LIMIT``)
+  up_parity  2 u-p steps on both engines on the card at 64², by pid:
+             rel_dx < 1e-3, rel_dv < 1e-2, the λ gap over its largest
+             magnitude within 1e-2 in root mean square and 1e-1 at its
+             largest (``BENCH_PARITY``: the float32 spread of this problem,
+             where the JAX package's own engines stay), equal Newton
+             iterations; and
+             tests/test_upw.py's column, 5 steps, at test_up_pallas_parity's
+             limits (x 1e-6, λ 1e-2·max(1, |λ|))
+  dem        the DEM step (discrete gradient, forward mode over the
+             reverse-mode ∂W/∂F) on the fused kernels, the problem of ``up``
+             at dt = h/c, DEMConfig's Newton-CG defaults; as ``up``, with
+             the launch formula of formulations/dem.py, the grid-energy
+             identity |ΔKE_grid + ΔW| / KE_grid per step, and one whole step
+             under the profiler
+  dem_parity 2 DEM steps on both engines at 128², by pid: rel_dx < 1e-3,
+             rel_dv < 1e-2, equal Newton iterations, the fused energy
+             identity below 6e-4 (``BENCH_PARITY``); and tests/test_dem.py's
+             bar, 3 steps, at the JAX test's limits (x 1e-6, v 1e-5,
+             identity 5e-4); with ``roofline`` the u-p and DEM steps' call
+             variants at their shapes (rows ``…@up``, ``…@dem``)
   probes     the lane-roll probes: a roll sum checked exactly against
              torch.roll, and timed beside its multiply-add twin at 4 shapes
   large      (if time allows) the fused path alone at the bigger size: 3D
@@ -120,6 +154,9 @@ TOL_LAM = dict(rtol=1e-3, atol=1e-4)    # λ (atol × 1/h)
 
 
 def say(**kw):
+    """One JSON line; a phase's line ends with the seconds since the start."""
+    if "phase" in kw:
+        kw["elapsed_s"] = time.perf_counter() - T_START
     print(json.dumps(kw), flush=True)
 
 
@@ -244,7 +281,9 @@ def _slot_problem(seed, dim, n_side, lo_cell, n_cell, capacity, per_cell, drift,
 # fixed-λ gnorm scatter of one channel (the Darcy diagonal), the fixed-λ
 # scatter of a G row 0 beside a zero channel (the flow row), and the gather
 # of 3 channels with the gradient of their first 2 (options ``solve``,
-# ``zero_fN``, ``G_row0``, ``grad_of_N``).
+# ``zero_fN``, ``G_row0``, ``grad_of_N``); then the u-p steps' λ solve with
+# tractions (2D 9 channels, 3D 12: the cap) and their gather of one channel
+# with the gradient of two others.
 RAGGED2 = dict(problem=(64, 4, (37, 53), 3, 2))
 SMALL2 = dict(problem=(32, 2, 24, 2, 1))
 RAGGED3 = dict(problem=(32, 4, 21, 3, 2))
@@ -272,7 +311,9 @@ KERNEL_CASES = {
                      ("fixed lam,cN=1,gnorm,margin=0 (upw implicit Darcy diagonal)", 0, False,
                       True, None, 39, dict(cN=1, solve=False)),
                      ("fixed lam,cN=1 zero,G row 0,margin=0 (upw flow row)", 0, True, False,
-                      None, 40, dict(cN=1, solve=False, zero_fN=True, G_row0=True))],
+                      None, 40, dict(cN=1, solve=False, zero_fN=True, G_row0=True)),
+                     ("solve,cN=9,gnorm,margin=0 (u-p, tractions)", 0, False, True, None, 42,
+                      dict(cN=9))],
             gather=[("cN=2+grad,margin=1", 1, True, True, 6),
                     ("cN=2,margin=1", 1, True, False, 7),
                     ("grad,margin=0", 0, False, True, 27),
@@ -281,7 +322,9 @@ KERNEL_CASES = {
                     ("cN=5+grad,margin=0", 0, True, True, 30, dict(cN=5)),
                     ("cN=6,margin=0 (implicit)", 0, True, False, 33, dict(cN=6)),
                     ("cN=3+grad of its first 2 columns,margin=0 (upw)", 0, True, True, 41,
-                     dict(cN=3, grad_of_N=True))]),
+                     dict(cN=3, grad_of_N=True)),
+                    ("cN=1+grad of 2 other columns,margin=0 (u-p)", 0, True, True, 43,
+                     dict(cN=1))]),
     3: dict(problem=(32, 4, 24, 2, 1), grid="32x32x32", box="24^3 cells x capacity 2",
             scatter=[("solve,cN=4,margin=0", 0, False, False, None, 11),
                      ("solve,cN=4,margin=1", 1, False, False, None, 12),
@@ -297,7 +340,9 @@ KERNEL_CASES = {
                      ("solve,cN=8,gnorm,margin=0 (implicit)", 0, False, True, None, 34,
                       dict(cN=8)),
                      ("solve,cN=11,gnorm,margin=0 (implicit, tractions)", 0, False, True, None,
-                      35, dict(cN=11))],
+                      35, dict(cN=11)),
+                     ("solve,cN=12,gnorm,margin=0 (u-p, tractions: the channel cap)", 0, False,
+                      True, None, 44, dict(cN=12))],
             gather=[("cN=3+grad,margin=1", 1, True, True, 16),
                     ("cN=3,margin=1", 1, True, False, 17),
                     ("grad,margin=0", 0, False, True, 18),
@@ -838,12 +883,16 @@ def _implicit_steps(label, p, grid, mats, cfg, steps, timed=None):
     return p, hist
 
 
-def _residual_costs(step_without_newton, reps=10):
+def _residual_costs(step_without_newton, reps=10, profile_label=None):
     """Host ms of one residual of the Newton loop and of one J·v (forward
     mode, primal and tangent), each synchronised, and ‖R₀‖, at the step's
     first iterate: the residual is taken from ``solvers.newton_krylov``'s
     arguments in a step that runs no Newton iteration
-    (``step_without_newton()``)."""
+    (``step_without_newton()``).  With ``profile_label``, also ``reps`` J·v
+    under torch.profiler (``profiled_jv``: device time and busy share of the
+    J·v loop, which is nearly all of a GMRES step; a whole such step has
+    several hundred thousand kernels, and the profiler takes minutes over
+    them)."""
     from nlpartsol_tpu_torch.ops import solvers
 
     seen, real = {}, solvers.newton_krylov
@@ -869,8 +918,18 @@ def _residual_costs(step_without_newton, reps=10):
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / reps
 
-    return dict(residual_ms=host_ms(lambda: R(x0)), jv_ms=host_ms(lambda: solvers.jvp(R, x0, v)),
-                r0_norm=float(torch.linalg.vector_norm(R(x0))))
+    out = dict(residual_ms=host_ms(lambda: R(x0)), jv_ms=host_ms(lambda: solvers.jvp(R, x0, v)),
+               r0_norm=float(torch.linalg.vector_norm(R(x0))))
+    if profile_label is not None:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                solvers.jvp(R, x0, v)
+            torch.cuda.synchronize()
+        out["profiled_jv"] = dict(reps=reps, **_profiled_step(
+            prof, reps * out["jv_ms"], profile_label))
+    return out
 
 
 def phase_implicit(device, dim):
@@ -1299,10 +1358,8 @@ def phase_upw_implicit(device):
     """The implicit u-pw step on the fused kernels: a warm-up step, then
     timed steps with the launch counts and host syncs set to 0 just before
     and read just after, launches held to the formula of
-    formulations/upw.py, one profiled step, host ms per residual and per
-    J·v."""
-    from torch.profiler import ProfilerActivity, profile
-
+    formulations/upw.py, host ms per residual and per J·v, and 5 J·v
+    under the profiler (device time and busy share of the J·v loop)."""
     from nlpartsol_tpu_torch.formulations import upw
     from nlpartsol_tpu_torch.formulations.explicit import to_slot_layout
     from nlpartsol_tpu_torch.ops import fused_transfer as ft
@@ -1326,11 +1383,9 @@ def phase_upw_implicit(device):
     seconds = 1e-3 * sum(times)
     total_nnz = sum(x[2] for x in hist)
     peak = torch.cuda.max_memory_allocated()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _upw_implicit_steps("upw_implicit", p2, grid, mats, mix, cfg, 1)
-        torch.cuda.synchronize()
     costs = _residual_costs(lambda: upw.upw_newmark_step(
-        p2, grid, mats, mix, cfg.replace(newton_maxiter=0), _upw_body(p2)), reps=5)
+        p2, grid, mats, mix, cfg.replace(newton_maxiter=0), _upw_body(p2)), reps=5,
+        profile_label="upw_implicit")
 
     say(phase="upw_implicit", grid="x".join(map(str, grid.dims)), particles=p0.count,
         slots=cfg.active_box.n_slots, dt=cfg.dt, warmup_steps=spec["warm"], steps=steps,
@@ -1342,7 +1397,7 @@ def phase_upw_implicit(device):
         host_syncs_per_step=sum(syncs.values()) / steps, host_syncs=syncs, launches=counts,
         launches_expected=want, peak_device_bytes=peak,
         host_ms_per_residual=costs["residual_ms"], host_ms_per_jv=costs["jv_ms"],
-        profiled_step=_profiled_step(prof, float(np.median(times)), "upw_implicit"))
+        profiled_jv=costs["profiled_jv"])
     return grid, p1, p2, mats, mix, cfg, h, counts, steps
 
 
@@ -1434,24 +1489,39 @@ UPW_IMPLICIT_CALLS = [("solve+gnorm: m, C, θ, v and a momenta, stiffness (8 cha
 
 def phase_upw_roofline(grid, p, mats, mix, cfg, counts, steps, implicit):
     """Each call of the u-pw step at its shapes and on its state (recorded
-    from one step on the path's last state) against its plain version:
-    error, time, plain time, bound; launches from the path's timed run (a
-    key the step calls twice a step is split evenly between its rows)."""
+    from one step on the path's last state) against its plain version."""
     from nlpartsol_tpu_torch.formulations import upw
+
+    body = _upw_body(p)
+    if implicit:
+        calls = _recorded_calls(lambda: upw.upw_newmark_step(
+            p, grid, mats, mix, cfg.replace(newton_maxiter=0), body))
+        return _calls_roofline(grid, p, cfg, counts, steps, calls, UPW_IMPLICIT_CALLS,
+                               "upw_implicit")
+    calls = _recorded_calls(lambda: upw.upw_step(p, grid, mats, mix, cfg, body))
+    return _calls_roofline(grid, p, cfg, counts, steps, calls, UPW_CALLS, "upw")
+
+
+def _calls_roofline(grid, p, cfg, counts, steps, calls, spec, path, sum_abs_scale=False):
+    """Each recorded call of a step (``spec``: its (label, launch key) in
+    the order the step makes them; a None label: a call timed by the row of
+    its variant's first labelled call) at its shapes and on its state,
+    against its plain version: error, time, plain time, bound; launches from
+    the path's timed run (a key with several rows is split evenly between
+    them).  A gather whose recorded fields are all zero (a residual at the
+    iterate z = 0) gets fields from a numpy seed instead, rows
+    ``… (seeded fields)``.  With ``sum_abs_scale`` a scatter's N-weighted
+    channels are held to TOL_N against the largest Σ N·|f| (the plain
+    version on |f|) instead of the largest |Σ N·f|: float32 sums err in
+    proportion to the sum of their terms' magnitudes, and a residual's
+    channel, such as u-p's (p̄ − λ)·V0 at a converged state, cancels to far
+    below them."""
     from nlpartsol_tpu_torch.ops import fused_transfer as ft
 
     d = grid.dim
     ops_of = OPS[d]
     box, params = cfg.active_box, cfg.lme_params
-    C, nc = box.capacity, box.n_cells
-    body = _upw_body(p)
-    if implicit:
-        spec, tag, path = UPW_IMPLICIT_CALLS, "@upw_implicit", "upw_implicit"
-        calls = _recorded_calls(lambda: upw.upw_newmark_step(
-            p, grid, mats, mix, cfg.replace(newton_maxiter=0), body))
-    else:
-        spec, tag, path = UPW_CALLS, "@upw", "upw"
-        calls = _recorded_calls(lambda: upw.upw_step(p, grid, mats, mix, cfg, body))
+    tag = "@" + path
     got_keys = [key for key, _, _, _ in calls]
     if got_keys != [key for _, key in spec]:
         raise PhaseError(f"{path} roofline: calls {got_keys}, expected {[k for _, k in spec]}")
@@ -1488,7 +1558,11 @@ def phase_upw_roofline(grid, p, mats, mix, cfg, counts, steps, implicit):
             cout = cN + (d if G_t is not None else 0) + (1 if gnorm else 0)
             n_bytes = ((slot_io + cN + (d * d if G_t is not None else 0)) * b_act
                        + (2 * d + 1) * b_idle + cout * b_nodes)
-            checks = [("nodes", lambda o, cN=cN: o[0][:, :cN], TOL_N)]
+            tol_n = TOL_N
+            if sum_abs_scale:
+                abs_nodes = ft._scatter_plain(*args[:6], args[6].abs(), None, solve, 0, False)[0]
+                tol_n = dict(TOL_N, scale=float(abs_nodes.max()) or 1.0)
+            checks = [("nodes", lambda o, cN=cN: o[0][:, :cN], tol_n)]
             if cout > cN:
                 checks.append(("grad", lambda o, cN=cN: o[0][:, cN:], TOL_GRAD))
 
@@ -1499,6 +1573,13 @@ def phase_upw_roofline(grid, p, mats, mix, cfg, counts, steps, implicit):
                 return ft._scatter_plain(*a, G_t, solve, 0, gnorm)
         else:
             gN, g_grad = kw.get("gN"), kw.get("g_grad")
+            if not any(bool(a.abs().max() > 0) for a in (gN, g_grad) if a is not None):
+                rng = np.random.default_rng(len(rows))
+                gN, g_grad = (None if a is None else torch.as_tensor(
+                    rng.standard_normal(tuple(a.shape)), dtype=a.dtype, device=a.device)
+                    for a in (gN, g_grad))
+                kw = dict(kw, gN=gN, g_grad=g_grad)
+                label += " (seeded fields)"
             cN = 0 if gN is None else gN.shape[1]
             if g_grad is not None:
                 per_edge = per_eval + ops_of["n"] + ops_of["dn"] + cN * ops_of["ch"] + ops_of["grad"]
@@ -1522,11 +1603,428 @@ def phase_upw_roofline(grid, p, mats, mix, cfg, counts, steps, implicit):
         launches = counts[key] // per_key[key]  # each row's call: once per key call
         _kernel_row(rows, f"{key}{tag} ({label})", key, d, fn_kernel, fn_plain, checks, n_bytes,
                     ops, launches, flush, launches_per_step=launches / steps, path=path)
-    say(phase="roofline" + tag.replace("@", "_"), slots=box.n_slots, active=n_active,
+    say(phase="roofline_" + path, slots=box.n_slots, active=n_active,
         window_offsets=n_offs,
         rows=[dict(name=r["name"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                    launches_per_step=r["launches_per_step"]) for r in rows])
     return rows
+
+
+# The mixed u-p step and the DEM step (this port's configuration; no repo
+# script times either): scripts/bench_implicit.py's problem, as
+# ``build_implicit(2, …)`` builds it — 256² nodes, 65,536 particles, a
+# capacity-6 box of 132² cells — Neo-Hookean E 1e7, ν 0.3, ρ 1000, LME γ=3,
+# the fused engine with a local re-bin every step, no body force.  u-p:
+# UpConfig's defaults (Newton tol 1e-5 relative, at most 20 iterations,
+# GMRES(20) to 1e-7 in at most 10 cycles) at dt = 2h/c, as the bench uses;
+# DEM: discrete gradient, DEMConfig's defaults (Newton tol 1e-6, CG) at dt =
+# h/c, as tests/test_dem.py:127 uses.  Depth: warm-up and timed steps; the
+# parity legs at ``parity_n_side``².
+UP = dict(n_side=256, warm=1, steps=2, parity_steps=2, parity_n_side=64)
+DEM = dict(n_side=256, warm=1, steps=2, parity_steps=2, parity_n_side=128)
+C_SOLID = float(np.sqrt(1e7 / 1000.0))
+
+
+def build_up_dem(device, kind, n_side=None):
+    """The u-p (``kind='up'``) or DEM problem at ``n_side``² (default: the
+    phase's width), in slot layout."""
+    from nlpartsol_tpu_torch.formulations.dem import DEMConfig
+    from nlpartsol_tpu_torch.formulations.explicit import to_slot_layout
+    from nlpartsol_tpu_torch.formulations.up import UpConfig
+
+    spec = UP if kind == "up" else DEM
+    grid, p, mats, cfg_e, h = build_problem(2, n_side or spec["n_side"], device)
+    common = dict(lme_params=cfg_e.lme_params, kinds=cfg_e.kinds, transfer="fused",
+                  active_box=cfg_e.active_box)
+    cfg = (UpConfig(dt=2.0 * h / C_SOLID, **common) if kind == "up"
+           else DEMConfig(dt=1.0 * h / C_SOLID, **common))
+    return grid, to_slot_layout(p, grid, cfg.active_box), mats, cfg, h
+
+
+def up_launches(steps, n, L, K):
+    """The launches of ``steps`` fused u-p steps with n Newton iterations, L
+    GMRES iterations and K GMRES convergence checks in all: the formula of
+    formulations/up.py's docstring."""
+    R = steps + 5 * n
+    V = n + K + 21 * L // 20
+    return {"lme_scatter2d:solve+gnorm": steps, "lme_gather2d:grad": steps,
+            "lme_gather2d:N+grad": steps + R + 2 * V, "lme_scatter2d:G": R + 2 * V,
+            "lme_gather2d:N": steps}
+
+
+def dem_launches(steps, n, L):
+    """The launches of ``steps`` fused DEM steps with n Newton and L CG
+    iterations in all: the formula of formulations/dem.py's docstring."""
+    return {"lme_scatter2d:solve+gnorm": steps, "lme_gather2d:grad": 3 * steps + 7 * n + 2 * L,
+            "lme_scatter2d:G": steps + 7 * n + 2 * L, "lme_gather2d:N": steps}
+
+
+def _up_dem_steps(label, kind, p, grid, mats, cfg, steps, timed=None):
+    """``steps`` u-p or DEM steps; each Newton loop must end by its
+    tolerance or its stall rule (before ``newton_maxiter``, finite), and
+    nothing may be lost.  Returns the particles and per step (Newton,
+    Krylov, nnz, residual, Krylov checks, converged, and for DEM the
+    grid-energy identity |ΔKE_grid + ΔW| / KE_grid)."""
+    from nlpartsol_tpu_torch.formulations.dem import dem_step
+    from nlpartsol_tpu_torch.formulations.up import up_step
+    from nlpartsol_tpu_torch.ops import solvers
+
+    body = torch.zeros(grid.dim, dtype=p.x.dtype, device=p.x.device)
+    step = up_step if kind == "up" else dem_step
+    hist = []
+    for i in range(steps):
+        k0 = solvers.host_syncs["krylov"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, dg = step(p, grid, mats, cfg, body)
+        torch.cuda.synchronize()
+        if timed is not None:
+            timed.append(1e3 * (time.perf_counter() - t0))
+        if dg["newton_iters"] >= cfg.newton_maxiter or not np.isfinite(
+                float(dg["newton_residual"])):
+            raise PhaseError(f"{label}: step {i} ran out of Newton iterations "
+                             f"(residual {float(dg['newton_residual'])})")
+        _check_state(label, p, dict(lost=dg["lost"]))
+        ident = None
+        if kind == "dem":
+            ident = abs(float(dg["grid_energy_increment"])) / float(dg["grid_kinetic_energy"])
+        hist.append((dg["newton_iters"], dg["cg_iters"], int(dg["nnz"]),
+                     float(dg["newton_residual"]), solvers.host_syncs["krylov"] - k0,
+                     bool(dg["converged"]), ident))
+    return p, hist
+
+
+JV_N_SIDE = 32  # the J·v check's problem: the phase's at 32² (CPU float64 is slow)
+# The card's float32 J·v against the plain versions' float32 J·v on CPU
+# tensors at the same x and v, over the float64 J·v's largest entry: about
+# five times the largest of three readings on the card (u-p 6.1e-7, DEM
+# 3.6e-6; PERF.md §6).
+JV_F32_LIMIT = dict(up=3e-6, dem=2e-5)
+
+
+def _jv_check(label, kind, device):
+    """One J·v of the fused step's Newton loop, on the phase's problem at
+    ``JV_N_SIDE``² from its first state, at the iterate x₀ + a seeded
+    perturbation (u-p: 1e-3 of the column scaling; DEM: 5 % of the largest
+    nodal speed).  In float64 on CPU tensors (the plain versions and this
+    machine's torch build's forward mode, for DEM over the reverse-mode
+    ∂W/∂F) against a float64 central difference of the same residual, within
+    1e-6 relative; in float32 on the card (the kernels' tangent launches)
+    against the plain versions' float32 J·v on CPU tensors at the same x and
+    v, within ``JV_F32_LIMIT`` of the float64 J·v's largest entry.  Each
+    float32 J·v's gap to the float64 one is reported beside it: DEM's
+    discrete-gradient correction (ΔW − ½S:ΔC)/|ΔC|² cancels in float32 on
+    either device."""
+    from nlpartsol_tpu_torch.formulations.dem import dem_step
+    from nlpartsol_tpu_torch.formulations.up import up_step
+    from nlpartsol_tpu_torch.ops import solvers
+
+    step = up_step if kind == "up" else dem_step
+    grid, p, mats, cfg, _ = build_up_dem(device, kind, n_side=JV_N_SIDE)
+
+    def residual_of(pp, gg, mm):
+        seen, real = {}, solvers.newton_krylov
+
+        def spy(residual, x0, **kw):
+            seen.update(residual=residual, x0=x0, M_inv=kw["M_inv"])
+            return real(residual, x0, **kw)
+
+        solvers.newton_krylov = spy
+        try:
+            step(pp, gg, mm, cfg.replace(newton_maxiter=0),
+                 torch.zeros(gg.dim, dtype=pp.x.dtype, device=pp.x.device))
+        finally:
+            solvers.newton_krylov = real
+        return seen
+
+    def on_cpu(dtype):
+        return lambda a: a.to("cpu", dtype) if a.is_floating_point() else a.to("cpu")
+
+    cpu = {dt: residual_of(*(r.map_tensors(on_cpu(dt)) for r in (p, grid, mats)))
+           for dt in (torch.float64, torch.float32)}
+    ref = cpu[torch.float64]
+    R, x0 = ref["residual"], ref["x0"]
+    rng = np.random.default_rng(11)
+    dx, v = (torch.as_tensor(rng.standard_normal(tuple(x0.shape))) for _ in range(2))
+    if kind == "up":  # unknowns at the scale of the column scaling (h, θ_ref)
+        x, v = x0 + ref["M_inv"](1e-3 * dx), ref["M_inv"](v)
+    else:  # velocities: 5 % of the largest nodal speed
+        x = x0 + 0.05 * float(x0.abs().max()) * dx
+    jv64 = solvers.jvp(R, x, v)[1]
+    s = 1e-6 if kind == "dem" else 1e-5
+    fd = (R(x + s * v) - R(x - s * v)) / (2 * s)
+    fd_scale = float(fd.abs().max())
+
+    def jv32(residual, dev):
+        return solvers.jvp(residual, x.to(dev, torch.float32),
+                           v.to(dev, torch.float32))[1].double().cpu()
+
+    jv_card = jv32(residual_of(p, grid, mats)["residual"], p.x.device)
+    jv_cpu = jv32(cpu[torch.float32]["residual"], "cpu")
+    lim32 = JV_F32_LIMIT[kind]
+    out = dict(grid=f"{JV_N_SIDE}x{JV_N_SIDE}", fd_scale=fd_scale,
+               err_f64_cpu=float(((jv64 - fd).abs() - 1e-6 * fd.abs()).max()) / fd_scale,
+               err_f32_card_vs_cpu=float((jv_card - jv_cpu).abs().max()) / fd_scale,
+               err_f32_card=float((jv_card - jv64).abs().max()) / fd_scale,
+               err_f32_cpu=float((jv_cpu - jv64).abs().max()) / fd_scale, limit_f64=1e-6,
+               limit_f32_card_vs_cpu=lim32)
+    if not (fd_scale > 0 and out["err_f64_cpu"] <= 1e-6
+            and out["err_f32_card_vs_cpu"] <= lim32):
+        raise PhaseError(f"{label}: J·v against the central difference {out}")
+    return out
+
+
+def phase_up_dem(device, kind):
+    """The u-p or DEM step on the fused kernels: a warm-up step, then timed
+    steps with the launch counts and host syncs set to 0 just before and
+    read just after, launches held to the module's formula, host ms per
+    residual and per J·v, the profiler over 5 J·v (u-p: its step is
+    about 700 of them) or over one step (DEM), and one J·v against a float64
+    central difference."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nlpartsol_tpu_torch.formulations.dem import dem_step
+    from nlpartsol_tpu_torch.formulations.up import up_step
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+    from nlpartsol_tpu_torch.ops import solvers
+
+    spec = UP if kind == "up" else DEM
+    grid, p0, mats, cfg, h = build_up_dem(device, kind)
+    p1, _ = _up_dem_steps(kind, kind, p0, grid, mats, cfg, spec["warm"])
+    torch.cuda.reset_peak_memory_stats()
+    ft.reset_launch_counts()
+    solvers.reset_host_syncs()
+    times = []
+    steps = spec["steps"]
+    p2, hist = _up_dem_steps(kind, kind, p1, grid, mats, cfg, steps, times)
+    counts, syncs = dict(ft.launch_counts), dict(solvers.host_syncs)
+    n_tot, l_tot = sum(x[0] for x in hist), sum(x[1] for x in hist)
+    want = (up_launches(steps, n_tot, l_tot, syncs.get("krylov", 0)) if kind == "up"
+            else dem_launches(steps, n_tot, l_tot))
+    if counts != want:
+        raise PhaseError(f"{kind}: launch counts {counts}, expected {want}")
+    seconds = 1e-3 * sum(times)
+    total_nnz = sum(x[2] for x in hist)
+    peak = torch.cuda.max_memory_allocated()
+    step = up_step if kind == "up" else dem_step
+    body = torch.zeros(grid.dim, dtype=p2.x.dtype, device=p2.x.device)
+    costs = _residual_costs(lambda: step(p2, grid, mats, cfg.replace(newton_maxiter=0), body),
+                            reps=5, profile_label=kind if kind == "up" else None)
+    if kind == "dem":  # a step of about 23,000 kernels: profile it whole
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _up_dem_steps(kind, kind, p2, grid, mats, cfg, 1)
+            torch.cuda.synchronize()
+        costs["profiled_step"] = _profiled_step(prof, float(np.median(times)), kind)
+        extra = dict(energy_identity=[x[6] for x in hist], cg_iters=[x[1] for x in hist])
+    else:
+        extra = dict(gmres_iters=[x[1] for x in hist], gmres_checks=[x[4] for x in hist],
+                     lambda_max=float(p2.pw[p2.active].abs().max()))
+    say(phase=kind, grid="x".join(map(str, grid.dims)), particles=int(p0.active.sum()),
+        slots=cfg.active_box.n_slots, dt=cfg.dt, warmup_steps=spec["warm"], steps=steps,
+        ms_per_step=1e3 * seconds / steps, step_ms=times, nnz_per_step=total_nnz / steps,
+        nnz_per_s=total_nnz / seconds, newton_iters=[x[0] for x in hist],
+        newton_residual=[x[3] for x in hist], converged=[x[5] for x in hist], lost=0,
+        host_syncs_per_step=sum(syncs.values()) / steps, host_syncs=syncs, launches=counts,
+        launches_expected=want, peak_device_bytes=peak,
+        host_ms_per_residual=costs["residual_ms"], host_ms_per_jv=costs["jv_ms"],
+        **{k: costs[k] for k in ("profiled_jv", "profiled_step") if k in costs},
+        jv_check=_jv_check(kind, kind, device), **extra)
+    return grid, p2, mats, cfg, counts, steps
+
+
+# Parity limits of λ (u-p) and of the fused grid-energy identity (DEM) on
+# the bench problem, where float32 fixes neither to the JAX tests' 1e-2 and
+# 5e-4 (PERF.md §6).  λ: the random velocities load it weakly (λ ≈
+# 455 at 64²) and rounding moves it.  On the card the windowed engine
+# repeats to the bit and the fused one (atomic sums) does not: over 35 runs
+# at 64² its largest per-particle gap ranged 8.4e-3-5.7e-2 of max|λ|, and
+# over 28 of them the root mean square 2.4e-3-7.3e-3 (this phase and
+# tests/torch_up_dem_probe.py card-spread).  The JAX package's
+# own windowed and 'pallas' steps differ by 2.1e-2 (largest) and 4.2e-3
+# (rms) at 64² (CPU, tests/torch_up_dem_probe.py jax-engines up 64); ten
+# times the GMRES budget leaves the port's gap at 32² where it was (CPU).
+# So the rms is held to 1e-2 and the largest gap to 1e-1.  Identity: the
+# JAX engines reach 5.76e-4 and 5.78e-4 on the second step at 128² (CPU,
+# jax-engines dem 128), the port's fused engine 5.81e-4-5.86e-4 in six card
+# runs.  The JAX tests' own limits hold on their own problems, the column
+# and the bar, beside it.
+BENCH_PARITY = dict(dlambda=1e-1, dlambda_rms=1e-2, energy_identity=6e-4)
+
+
+def phase_up_dem_parity(device, kind):
+    """The same u-p or DEM steps from the same state on the fused kernels and
+    on the windowed engine on the card at ``parity_n_side``², matched by pid:
+    rel_dx < 1e-3, rel_dv < 1e-2, equal Newton iterations; u-p: the λ gap
+    over its largest magnitude, its root mean square and its largest entry
+    within ``BENCH_PARITY``, and tests/test_upw.py's column
+    (the box over its grid at capacity 8, dt 2e-3, gravity) for 5 steps at
+    the JAX package's limits there (x 1e-6, λ 1e-2·max(1, |λ|),
+    test_upw.py:325-327); DEM: the fused grid-energy identity below
+    ``BENCH_PARITY``, and test_dem.py's bar (LME γ=3, capacity 8, dt = h/c,
+    with its SVK test's sine velocity) for 3 steps at the JAX test's limits
+    (x 1e-6, v 1e-5, identity 5e-4, test_dem.py:148-152)."""
+    label = kind + "_parity"
+    spec = UP if kind == "up" else DEM
+    steps = spec["parity_steps"]
+    grid, p1, mats, cfg, h = build_up_dem(device, kind, n_side=spec["parity_n_side"])
+    pf, hist_f = _up_dem_steps(label + ":fused", kind, p1, grid, mats, cfg, steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    pw_, hist_w = _up_dem_steps(label + ":windowed", kind, p1, grid, mats,
+                                cfg.replace(transfer="windowed"), steps, times)
+    names = ("x", "v", "pw") if kind == "up" else ("x", "v")
+    rel_dx, rel_dv, *more = _parity(pf, pw_, h, label, names)
+    newton_f, newton_w = [x[0] for x in hist_f], [x[0] for x in hist_w]
+    out = dict(rel_dx=rel_dx, rel_dv=rel_dv, limit_dx=1e-3, limit_dv=1e-2)
+    ok = rel_dx < 1e-3 and rel_dv < 1e-2 and newton_f == newton_w
+    if kind == "up":
+        (lf, lw), = more
+        l_scale = max(float(lw.abs().max()), 1e-30)
+        gap = (lf - lw).abs() / l_scale
+        out.update(rel_dlambda=float(gap.max()), rms_dlambda=float((gap ** 2).mean().sqrt()),
+                   lambda_scale=l_scale, limit_dlambda=BENCH_PARITY["dlambda"],
+                   limit_rms_dlambda=BENCH_PARITY["dlambda_rms"])
+        ok = (ok and out["rel_dlambda"] < BENCH_PARITY["dlambda"]
+              and out["rms_dlambda"] < BENCH_PARITY["dlambda_rms"])
+        out["column"] = _up_column_parity(device)
+        ok = ok and out["column"]["ok"]
+    else:
+        ident = max(x[6] for x in hist_f)
+        out.update(energy_identity_fused=ident,
+                   limit_energy_identity=BENCH_PARITY["energy_identity"],
+                   energy_identity_windowed=max(x[6] for x in hist_w))
+        ok = ok and ident < BENCH_PARITY["energy_identity"]
+        out["bar"] = _dem_bar_parity(device)
+        ok = ok and out["bar"]["ok"]
+    say(phase=label, steps=steps, grid="x".join(map(str, grid.dims)), **out,
+        newton_fused=newton_f, newton_windowed=newton_w, krylov_fused=[x[1] for x in hist_f],
+        krylov_windowed=[x[1] for x in hist_w], converged_fused=[x[5] for x in hist_f],
+        nnz_fused=[x[2] for x in hist_f], nnz_windowed=[x[2] for x in hist_w],
+        windowed_ms_per_step=float(np.mean(times)),
+        windowed_peak_device_bytes=torch.cuda.max_memory_allocated(), ok=ok)
+    if not ok:
+        raise PhaseError(f"{label}: {out}, Newton {newton_f} vs {newton_w}")
+
+
+def _up_column_parity(device):
+    """tests/test_upw.py::test_up_pallas_parity on the card: the column of
+    ``column_problem`` (its soil and fluid table, mixture densities), 5 u-p
+    steps on each engine from the same state, by pid."""
+    from nlpartsol_tpu_torch.formulations.explicit import to_slot_layout
+    from nlpartsol_tpu_torch.formulations.up import UpConfig, up_step
+
+    grid, p, mats, _, ccfg, _ = column_problem(device)
+    cfg = UpConfig(dt=2e-3, lme_params=ccfg.lme_params, kinds=ccfg.kinds, transfer="fused",
+                   active_box=ccfg.active_box)
+    body = _upw_body(p)
+    res = {}
+    for transfer in ("fused", "windowed"):
+        q = to_slot_layout(p, grid, cfg.active_box)
+        for i in range(5):
+            q, dq = up_step(q, grid, mats, cfg.replace(transfer=transfer), body)
+            _check_state(f"up_parity:column:{transfer}", q, dict(lost=dq["lost"]))
+        res[transfer] = (_by_pid_fields(q, ("x", "pw")), bool(dq["converged"]))
+    ((pid_f, (xf, lf)), conv_f), ((pid_w, (xw, lw)), conv_w) = res["fused"], res["windowed"]
+    if not bool((pid_f == pid_w).all()):
+        raise PhaseError("up_parity:column: particle sets differ")
+    l_scale = max(1.0, float(lw.abs().max()))
+    out = dict(steps=5, particles=p.count, dx=float((xf - xw).abs().max()),
+               dlambda=float((lf - lw).abs().max()), lambda_scale=l_scale,
+               limits=dict(dx=1e-6, dlambda=1e-2 * l_scale), converged=[conv_f, conv_w])
+    out["ok"] = (out["dx"] <= 1e-6 and out["dlambda"] <= 1e-2 * l_scale and conv_f and conv_w)
+    return out
+
+
+def _dem_bar_parity(device):
+    """tests/test_dem.py::test_dem_pallas_parity_and_energy on the card:
+    test_explicit.py's bar (20×2 cells of h = 0.05, 2×2 particles a cell,
+    ends fixed in x, every node in y), Neo-Hookean E 1e7, ν 0.3, ρ 1000,
+    with the sine velocity of amplitude 0.05 of test_dem.py's SVK test (the
+    JAX test starts at rest), 3 DEM steps on each engine, by pid."""
+    from nlpartsol_tpu_torch.formulations.dem import DEMConfig, dem_step
+    from nlpartsol_tpu_torch.formulations.explicit import to_slot_layout
+    from nlpartsol_tpu_torch.models import materials as M
+    from nlpartsol_tpu_torch.ops import windowed
+    from nlpartsol_tpu_torch.shapefun import lme
+    from nlpartsol_tpu_torch.types import Grid, make_particles
+
+    nx, ny, h, ppc = 20, 2, 0.05, 2
+    dims = (nx + 1, ny + 1)
+    ids = np.arange(dims[0] * dims[1]).reshape(dims)
+    fixed = np.zeros((ids.size, 2), bool)
+    fixed[ids[0, :], 0] = fixed[ids[-1, :], 0] = True
+    fixed[:, 1] = True
+    grid = Grid(dims=dims, spacing=h, origin=(0.0, 0.0),
+                dirichlet_mask=torch.as_tensor(fixed, device=device),
+                dirichlet_value=torch.zeros((ids.size, 2), device=device))
+    i, j, a, b = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(ppc), np.arange(ppc),
+                             indexing="ij")
+    x = np.stack([(i + (a + 0.5) / ppc) * h, (j + (b + 0.5) / ppc) * h], -1).reshape(-1, 2)
+    vol = (h / ppc) ** 2
+    vx = 0.05 * np.sin(np.pi * x[:, 0])
+    p = make_particles(x.astype(np.float32), mass=np.full(len(x), 1000.0 * vol, np.float32),
+                       vol0=np.full(len(x), vol, np.float32),
+                       v=np.stack([vx, np.zeros_like(vx)], -1).astype(np.float32), device=device)
+    mats = M.material_table([M.material(kind="Neo-Hookean-Wriggers", E=1e7, nu=0.3, rho0=1000.0)],
+                            device=device)
+    cfg = DEMConfig(dt=h / C_SOLID, lme_params=lme.LMEParams(gamma=3.0), kinds=(M.NEO_HOOKEAN,),
+                    transfer="fused", active_box=windowed.full_box(grid, capacity=8))
+    body = torch.zeros(2, dtype=torch.float32, device=device)
+    res = {}
+    for transfer in ("fused", "windowed"):
+        q, ident, newton = to_slot_layout(p, grid, cfg.active_box), 0.0, []
+        for _ in range(3):
+            q, dq = dem_step(q, grid, mats, cfg.replace(transfer=transfer), body)
+            _check_state(f"dem_parity:bar:{transfer}", q, dict(lost=dq["lost"]))
+            ident = max(ident, abs(float(dq["grid_energy_increment"]))
+                        / float(dq["grid_kinetic_energy"]))
+            newton.append(dq["newton_iters"])
+        res[transfer] = (_by_pid_fields(q, ("x", "v")), ident, newton)
+    ((pid_f, (xf, vf)), ident_f, newton_f), ((pid_w, (xw, vw)), ident_w, newton_w) = (
+        res["fused"], res["windowed"])
+    if not bool((pid_f == pid_w).all()):
+        raise PhaseError("dem_parity:bar: particle sets differ")
+    out = dict(steps=3, particles=p.count, dx=float((xf - xw).abs().max()),
+               dv=float((vf - vw).abs().max()), energy_identity_fused=ident_f,
+               energy_identity_windowed=ident_w, newton_fused=newton_f,
+               newton_windowed=newton_w, limits=dict(dx=1e-6, dv=1e-5, energy_identity=5e-4))
+    out["ok"] = (out["dx"] <= 1e-6 and out["dv"] <= 1e-5 and ident_f < 5e-4
+                 and newton_f == newton_w)
+    return out
+
+
+# The calls of one u-p / DEM step with newton_maxiter = 0 (set-up, r₀, the
+# state at the iterate, the last N-gather), in order: (label, launch key);
+# rows of ``_calls_roofline``.  The u-p residual's gather reads the iterate
+# z = 0 there (seeded fields); the DEM gradient gathers of dU and of V − Vₙ
+# after the loop are the variant of r₀'s.
+UP_CALLS = [("solve+gnorm: m, V0, v and a momenta, stiffness (7 channels)",
+             "lme_scatter2d:solve+gnorm"),
+            ("grad: ∇ of the velocity constant", "lme_gather2d:grad"),
+            ("N+grad: N of dλ (1 channel) with ∇dU (residual)", "lme_gather2d:N+grad"),
+            ("G: [(p̄ − λ)·V0 | G] (residual)", "lme_scatter2d:G"),
+            (None, "lme_gather2d:N+grad"),
+            ("N: dU, v and a increments (6 channels)", "lme_gather2d:N")]
+DEM_CALLS = [("solve+gnorm: m, m·v, stiffness·Δt/2 (4 channels)", "lme_scatter2d:solve+gnorm"),
+             ("grad: ∇dU (residual)", "lme_gather2d:grad"),
+             ("G: zero channel + V0·P*·F_nᵀ (residual)", "lme_scatter2d:G"),
+             (None, "lme_gather2d:grad"),
+             (None, "lme_gather2d:grad"),
+             ("N: dU and V − Vₙ (4 channels)", "lme_gather2d:N")]
+
+
+def phase_up_dem_roofline(grid, p, mats, cfg, counts, steps, kind):
+    """Each call of the u-p or DEM step at its shapes and on the path's last
+    state against its plain version (rows ``…@up``, ``…@dem``)."""
+    from nlpartsol_tpu_torch.formulations.dem import dem_step
+    from nlpartsol_tpu_torch.formulations.up import up_step
+
+    step = up_step if kind == "up" else dem_step
+    body = torch.zeros(grid.dim, dtype=p.x.dtype, device=p.x.device)
+    calls = _recorded_calls(lambda: step(p, grid, mats, cfg.replace(newton_maxiter=0), body))
+    return _calls_roofline(grid, p, cfg, counts, steps, calls,
+                           UP_CALLS if kind == "up" else DEM_CALLS, kind, sum_abs_scale=True)
 
 
 def phase_profile(grid, p1, mats, cfg, label="profile"):
@@ -1728,7 +2226,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="kernels,main_path,parity,roofline,implicit,"
                     "implicit_parity,kernels3d,main_path3d,parity3d,roofline3d,implicit3d,"
-                    "implicit_parity3d,upw,upw_parity,upw_implicit,upw_implicit_parity,probes,"
+                    "implicit_parity3d,upw,upw_parity,upw_implicit,upw_implicit_parity,up,"
+                    "up_parity,dem,dem_parity,probes,"
                     "large3d,large",
                     help="comma-separated phases to run after device and build")
     args = ap.parse_args()
@@ -1786,6 +2285,16 @@ def main():
         torch.cuda.empty_cache()
         if "upw_implicit_parity" in phases:
             phase_upw_implicit_parity(device)
+    for path in ("up", "dem"):
+        if path in phases:
+            grid, p2, mats, cfg, counts, steps = phase_up_dem(device, path)
+            if "roofline" in phases:
+                rows += phase_up_dem_roofline(grid, p2, mats, cfg, counts, steps, path)
+            del p2
+            torch.cuda.empty_cache()
+        if path + "_parity" in phases:
+            phase_up_dem_parity(device, path)
+            torch.cuda.empty_cache()
     if "probes" in phases:
         rows += phase_probes(device)
     # the large legs are optional: only with most of the time limit ahead

@@ -13,8 +13,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from .formulations.dem import DEMConfig
 from .formulations.explicit import ExplicitConfig
 from .formulations.implicit import ImplicitConfig
+from .formulations.up import UpConfig
 from .formulations.upw import MixtureTable, UpwConfig, UpwImplicitConfig
 from .models.materials import MaterialTable
 from .ops.windowed import ActiveBox
@@ -153,3 +155,15 @@ def upw_implicit_config_from_fields(fields: dict) -> UpwImplicitConfig:
     UpwImplicitConfig (see :func:`_config_from_fields`)."""
     return _config_from_fields(UpwImplicitConfig, fields,
                                {"alme_params": None, "prebinned": False})
+
+
+def up_config_from_fields(fields: dict) -> UpConfig:
+    """UpConfig from the static fields of the JAX package's UpConfig (see
+    :func:`_config_from_fields`)."""
+    return _config_from_fields(UpConfig, fields, {"alme_params": None, "prebinned": False})
+
+
+def dem_config_from_fields(fields: dict) -> DEMConfig:
+    """DEMConfig from the static fields of the JAX package's DEMConfig (see
+    :func:`_config_from_fields`)."""
+    return _config_from_fields(DEMConfig, fields, {"alme_params": None, "prebinned": False})

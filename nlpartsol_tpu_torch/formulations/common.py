@@ -54,9 +54,11 @@ def make_engine(cfg, grid, sf, offsets, mask):
         if cfg.active_box is None:
             raise ValueError("windowed transfer requires cfg.active_box")
         return transfer.WindowedEngine(grid, cfg.active_box, offsets, mask)
-    if cfg.transfer in ("scatter", "binned"):
+    if cfg.transfer == "scatter":
+        return transfer.ScatterEngine(grid, sf["node_ids"], mask)
+    if cfg.transfer == "binned":
         raise NotImplementedError(
-            f"transfer '{cfg.transfer}' is not ported yet: ROADMAP.md queue 1, "
+            "transfer 'binned' is not ported yet: ROADMAP.md queue 1, item 13, "
             "'Other shape functions, engines and integrators'"
         )
     raise ValueError(f"unknown transfer {cfg.transfer}")

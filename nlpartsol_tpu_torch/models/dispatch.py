@@ -3,7 +3,7 @@
 Counterpart of ``nlpartsol_tpu/models/dispatch.py``: a static loop over the
 *model kinds present in the material table*; each model runs batched over
 all particles and the results are blended with masks.  Handled so far:
-``NEO_HOOKEAN`` and ``SOLID_RIGID``.
+``NEO_HOOKEAN``, ``SAINT_VENANT_KIRCHHOFF`` and ``SOLID_RIGID``.
 """
 
 from __future__ import annotations
@@ -86,6 +86,9 @@ def stress_integration(
         sel = kind_p == kind
         if kind == M.NEO_HOOKEAN:
             tau, tzz, W = hyperelastic.neo_hookean(F_n1, g("E"), g("nu"))
+            out = blend(out, sel, tau, tzz, W)
+        elif kind == M.SAINT_VENANT_KIRCHHOFF:
+            tau, tzz, W = hyperelastic.saint_venant_kirchhoff(F_n1, g("E"), g("nu"))
             out = blend(out, sel, tau, tzz, W)
         elif kind == M.SOLID_RIGID:
             # Rigid: zero stress, no state evolution.

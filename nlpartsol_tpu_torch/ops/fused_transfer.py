@@ -516,9 +516,9 @@ def _gather_n(v: Tensor, geo) -> Tensor:
                         margin=margin)[0]
 
 
-def _gather_n_grad(v: Tensor, geo):
+def _gather_n_grad(v: Tensor, geo, n_from: int = 0):
     grid, box, params, x_t, lam_t, act_t, margin = geo
-    return fused_gather(grid, box, params, x_t, lam_t, act_t, gN=v.contiguous(),
+    return fused_gather(grid, box, params, x_t, lam_t, act_t, gN=v[:, n_from:].contiguous(),
                         g_grad=v[:, :grid.dim].contiguous(), margin=margin)
 
 
@@ -571,20 +571,24 @@ class GatherN(torch.autograd.Function):
 
 
 class GatherNGrad(torch.autograd.Function):
-    """(n_nodes, cN ≥ d) node field f ↦ ((Ns, cN) Σ_A N_A·f_A, (Ns, d, d)
-    Σ_A f_A[:d] ⊗ ∇N_A) at fixed λ: both from one launch, the gradient of
-    the field's first d columns (a copy of its own, so the kernel's reuse of
-    the N-sums for a gradient of the same field never applies)."""
+    """(n_nodes, cN ≥ d) node field f ↦ ((Ns, cN − n_from) Σ_A N_A·f_A[n_from:],
+    (Ns, d, d) Σ_A f_A[:d] ⊗ ∇N_A) at fixed λ: both from one launch, the
+    gradient of the field's first d columns (a copy of its own, so the
+    kernel's reuse of the N-sums for a gradient of the same field never
+    applies).  ``apply(v, geo)`` or ``apply(v, geo, n_from)``."""
 
     @staticmethod
-    def forward(v, geo):
-        return _gather_n_grad(v, geo)
-
-    setup_context = staticmethod(_keep_geo)
+    def forward(v, geo, n_from=0):
+        return _gather_n_grad(v, geo, n_from)
 
     @staticmethod
-    def jvp(ctx, t, _):
-        return _gather_n_grad(t, ctx.geo)
+    def setup_context(ctx, inputs, output):
+        ctx.geo = inputs[1]
+        ctx.n_from = inputs[2] if len(inputs) > 2 else 0
+
+    @staticmethod
+    def jvp(ctx, t, *_):
+        return _gather_n_grad(t, ctx.geo, ctx.n_from)
 
 
 class ScatterNG(torch.autograd.Function):

@@ -71,7 +71,7 @@ def inv_transpose(a: Tensor) -> Tensor:
 # when F ≈ I.  Everything downstream therefore works with the displacement
 # gradient A = F − I and these exact identities:
 #   det(I+A) − 1 = I1(A) + I2(A) + I3(A)
-#   (I+A)(I+A)ᵀ − I = A + Aᵀ + AAᵀ
+#   (I+A)(I+A)ᵀ − I = A + Aᵀ + AAᵀ,  (I+A)ᵀ(I+A) − I = A + Aᵀ + AᵀA
 #   x − log1p(x) = x²/2 − x³/3 + …   (series for small x)
 # ---------------------------------------------------------------------------
 
@@ -89,6 +89,12 @@ def det_minus_one(a_disp: Tensor) -> Tensor:
 def bmi_from_disp_grad(a_disp: Tensor) -> Tensor:
     """b − I = A + Aᵀ + AAᵀ (left Cauchy-Green minus identity)."""
     return a_disp + a_disp.transpose(-1, -2) + bmm_t(a_disp, a_disp)
+
+
+def cmi_from_disp_grad(a_disp: Tensor) -> Tensor:
+    """C − I = A + Aᵀ + AᵀA (right Cauchy-Green minus identity)."""
+    a_t = a_disp.transpose(-1, -2)
+    return a_disp + a_t + bmm(a_t, a_disp)
 
 
 def sub_log1p(x: Tensor) -> Tensor:

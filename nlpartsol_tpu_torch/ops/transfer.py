@@ -1,9 +1,16 @@
 """Particle↔grid transfer engine behind one interface.
 
-Counterpart of ``nlpartsol_tpu/ops/transfer.py``; ported so far is the
-``windowed`` engine (ops/windowed.py): cell-binned slot layout plus
-static-slice dense adds.  The steps build one engine per step after
-shape-function evaluation and express every transfer through it:
+Counterpart of ``nlpartsol_tpu/ops/transfer.py``, two backends behind one
+interface:
+
+* ``scatter`` — segment sums and gathers over the padded (Np, K) pattern
+  (ops/sparse.py), in particle order: any particle order, no slot layout;
+  the engine of the reference binary's DEM goldens.
+* ``windowed`` — the structured-grid engine (ops/windowed.py): cell-binned
+  slot layout plus static-slice dense adds.
+
+The steps build one engine per step after shape-function evaluation and
+express every transfer through it:
   p2g(vals)         (Np,K[,c]) per-edge values → (n_nodes[,c])
   g2p(weights, f)   Σ_k w·f[node_k]           → (Np[,c])
   edge_gather(f)    f[node_k] per edge        → (Np,K,c)  (for ΔF assembly)
@@ -14,8 +21,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import windowed
+from . import sparse, windowed
 from ..types import Grid
+
+
+class ScatterEngine:
+    def __init__(self, grid: Grid, node_ids, mask):
+        self.grid = grid
+        self.ids = node_ids
+        self.mask = mask
+
+    def p2g(self, vals):
+        return sparse.p2g(self.ids, self.mask, vals, self.grid.n_nodes)
+
+    def g2p(self, weights, field):
+        return sparse.g2p(self.ids, self.mask, weights, field)
+
+    def edge_gather(self, field):
+        g = field[self.ids.long()]  # (Np, K[, c])
+        m = self.mask if g.ndim == 2 else self.mask[..., None]
+        return torch.where(m, g, torch.zeros((), dtype=g.dtype, device=g.device))
 
 
 class WindowedEngine:
