@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``nlpartsol_tpu_torch/csrc`` (one ``nvcc`` per
-source, all started together) and drives the port's eight paths — the 2D
+source, all started together) and drives the port's nine paths — the 2D
 and the 3D explicit LME step, the 2D and 3D implicit Newmark step, the 2D
-explicit and implicit soil-water mixture (u-pw) step, and the 2D mixed u-p
-and Discrete Energy-Momentum (DEM) steps, on the fused kernels — on the
-card.  Each phase
+explicit and implicit soil-water mixture (u-pw) step, the 2D mixed u-p and
+Discrete Energy-Momentum (DEM) steps, and the explicit step with every
+constitutive model in 2D and 3D, on the fused kernels — on the card.  Each phase
 prints one JSON line; any failure ends the run with a non-zero exit code.
 Without a CUDA device the script fails at once.
 
@@ -107,6 +107,30 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              bar, 3 steps, at the JAX test's limits (x 1e-6, v 1e-5,
              identity 5e-4); with ``roofline`` the u-p and DEM steps' call
              variants at their shapes (rows ``…@up``, ``…@dem``)
+  models_fn  each constitutive model (von Mises, Drucker-Prager, the Borja
+             frictional family, Hencky, Mooney-Rivlin, linear elastic, the
+             Newtonian and Bingham fluids) on 65,536 states a kind from a
+             numpy seed, 2D and 3D, in float32 on the card against the same
+             function in float32 on the CPU (every 8th state): per output the
+             largest, 99th-percentile and median row error over the output's
+             largest magnitude within ``MODELS_FN_TOL``; rows whose trial yield
+             value lies within ``YIELD_BAND`` of zero counted and left out
+  models     the main path's problem (bench.py's 512², 262,144 particles,
+             k=16 local re-bin) in a rigid frame of held nodes with one strip
+             of the block along x per kind of ``MODEL_STRIPS`` (the frictional
+             strips confined), dt = 0.25·h/c for the fastest wave speed;
+             4 warm-up + 16 timed steps, 2 scatters and 2 gathers a step,
+             lost 0, every active field and diagnostic finite, each plastic
+             kind's yielded share within ``PLASTIC_SHARE``
+  models_parity
+             8 of those steps from the same state on the fused and the
+             windowed engine on the card, by pid: rel_dx < 1e-3, rel_dv <
+             1e-2, per kind the eps gap over its largest value within
+             ``MODELS_EPS_GAP``
+  models3d   the same for scripts/bench3d.py's 96³ problem (110,592
+             particles, a re-bin every step) with Hencky, von Mises,
+             Drucker-Prager and Matsuoka-Nakai: 2 warm-up + 4 timed steps,
+             then 4 steps of parity (line ``models_parity3d``)
   probes     the lane-roll probes: a roll sum checked exactly against
              torch.roll, and timed beside its multiply-add twin at 4 shapes
   large      (if time allows) the fused path alone at the bigger size: 3D
@@ -2027,6 +2051,427 @@ def phase_up_dem_roofline(grid, p, mats, cfg, counts, steps, kind):
                            UP_CALLS if kind == "up" else DEM_CALLS, kind, sum_abs_scale=True)
 
 
+# ---------------------------------------------------------------------------
+# The constitutive models on the explicit step (phases ``models_fn``,
+# ``models``, ``models_parity``, ``models3d``)
+# ---------------------------------------------------------------------------
+
+SOLID = dict(E=1e7, nu=0.3, rho0=1000.0)
+FLUID = dict(rho0=1000.0, viscosity=1.0, compressibility=2.2e6, n_macdonald=7.0)
+# the frictional family's hardening κ̂_φ = a1·Λ (a2 = a3 = 0), its strips
+# confined by CONFINEMENT and started on that law at Λ0 = κ0/a1
+BORJA = dict(SOLID, a1_borja=5.0, a3_borja=0.0, alpha_borja=0.162, phi_frictional=0.0)
+CONFINEMENT = 1e5  # Pa: isotropic prestress of the frictional strips
+# The frame holds every node outside the block and its outer FRAME_LAYERS
+# node layers: a node whose support the block's edge cuts would carry the
+# unbalanced force of a prestressed skin, unload it and leave the frictional
+# corners in tension, where their float32 Newton scatters (PERF.md §6).
+FRAME_LAYERS = 3
+# One strip of the particle block along x per kind, in this order.  The
+# strengths put each plastic kind's yielded share inside PLASTIC_SHARE:
+# von Mises' σy and Drucker-Prager's κ0 are the medians, over each strip, of
+# the largest trial measure an elastic run of the phase's steps reaches
+# (tests/torch_models_probe.py calibrate, on the card at 512² and 96³); the
+# frictional κ0 of ``MODEL_KAPPA0`` (narrow cones on soft hardening) are
+# read from the card's plastic runs at four scalings (card-shares), since
+# yielding strips soften the waves that the elastic calibration counts
+# (PERF.md §4).
+MODEL_STRIPS = {
+    2: (("Von-Mises", dict(SOLID, kappa0=530.0, hardening_modulus=1e5, theta_voce=1.0)),
+        ("Drucker-Prager", dict(SOLID, kappa0=490.0, friction_angle=30.0, dilatancy_angle=10.0,
+                                exponent_ortiz=2.0, plastic_strain_0=0.01)),
+        ("Matsuoka-Nakai", BORJA),
+        ("Lade-Duncan", BORJA),
+        ("Modified-Lade-Duncan", dict(BORJA, m_frictional=0.2, atmospheric_pressure=-1e5)),
+        ("Hencky", SOLID),
+        ("Mooney-Rivlin", dict(SOLID, mu1_mr=2.0e6, mu2_mr=1.846e6)),
+        ("Linear-Elastic", SOLID),
+        ("Newtonian-Fluid-Compressible", FLUID),
+        ("Bingham-Fluid", dict(FLUID, kappa0=10.0, fluidity_param=100.0))),
+    3: (("Hencky", SOLID),
+        ("Von-Mises", dict(SOLID, kappa0=670.0, hardening_modulus=1e5, theta_voce=1.0)),
+        ("Drucker-Prager", dict(SOLID, kappa0=225.0, friction_angle=30.0, dilatancy_angle=10.0,
+                                exponent_ortiz=2.0, plastic_strain_0=0.01)),
+        ("Matsuoka-Nakai", BORJA)),
+}
+MODEL_KAPPA0 = {2: {"Matsuoka-Nakai": 1e-2, "Lade-Duncan": 5e-4, "Modified-Lade-Duncan": 5e-4},
+                3: {"Matsuoka-Nakai": 2e-3}}
+PLASTIC_KINDS = ("Von-Mises", "Drucker-Prager", "Matsuoka-Nakai", "Lade-Duncan",
+                 "Modified-Lade-Duncan")
+FRICTIONAL_KINDS = ("Matsuoka-Nakai", "Lade-Duncan", "Modified-Lade-Duncan")
+PLASTIC_SHARE = (0.05, 0.95)  # each plastic kind's share of yielded particles
+MODELS = {2: dict(warm=4, steps=16, parity_steps=8), 3: dict(warm=2, steps=4, parity_steps=4)}
+# the eps gap between the engines over its largest value, by kind
+MODELS_EPS_GAP = 1e-2
+
+
+def _initial_model_state(name, row, n, dim):
+    """bemi, bemi_zz, eps, kappa of a strip at rest: the frictional strips
+    confined by CONFINEMENT and on their hardening law at κ0 (MODEL_KAPPA0);
+    Drucker-Prager at κ = κ0; every other kind at the zero state."""
+    bemi, bzz = np.zeros((n, dim, dim), np.float32), np.zeros(n, np.float32)
+    eps, kappa = np.zeros(n, np.float32), np.zeros(n, np.float32)
+    if name in FRICTIONAL_KINDS:
+        K = row["E"] / (3.0 * (1.0 - 2.0 * row["nu"]))
+        w = np.expm1(-2.0 * CONFINEMENT / (3.0 * K))  # b_e − 1 of E_h = −p/3K
+        bemi[:] = w * np.eye(dim, dtype=np.float32)
+        bzz[:] = w if dim == 2 else 0.0
+        kappa[:] = MODEL_KAPPA0[dim][name]
+        eps[:] = kappa / row["a1_borja"]
+    elif name == "Drucker-Prager":
+        kappa[:] = row["kappa0"]
+    return bemi, bzz, eps, kappa
+
+
+def build_models(dim, n_side, device, frame=True):
+    """The main path's problem (bench.py's in 2D, scripts/bench3d.py's in
+    3D) with one strip of the particle block along x per kind of
+    ``MODEL_STRIPS``, held in a rigid frame (FRAME_LAYERS; ``frame=False``
+    leaves bench.py's free surfaces);
+    dt = 0.25·h/c for the fastest wave speed among the kinds.  Returns the
+    problem and the initial eps of each strip."""
+    from nlpartsol_tpu_torch.models import materials as M
+
+    grid, p, _, cfg, h = build_problem(dim, n_side, device)
+    strips = MODEL_STRIPS[dim]
+    rows = [M.material(kind=name, **params) for name, params in strips]
+    mats = M.material_table(rows, device=device)
+    x0 = p.x[:, 0].cpu().numpy()
+    lo, hi = x0.min(), x0.max()
+    sid = np.minimum(((x0 - lo) / (hi - lo) * len(strips)).astype(np.int64), len(strips) - 1)
+    n = p.count
+    state = [np.zeros((n, dim, dim), np.float32)] + [np.zeros(n, np.float32) for _ in range(3)]
+    eps0 = []
+    for i, ((name, _), row) in enumerate(zip(strips, rows)):
+        sel = sid == i
+        init = _initial_model_state(name, row, int(sel.sum()), dim)
+        for arr, val in zip(state, init):
+            arr[sel] = val
+        eps0.append(float(init[2][0]) if len(init[2]) else 0.0)
+    dev = p.x.device
+    p = p.replace(mat_id=torch.as_tensor(sid, dtype=torch.int32, device=dev),
+                  **{k: torch.as_tensor(v, device=dev)
+                     for k, v in zip(("bemi", "bemi_zz", "eps", "kappa"), state)})
+    if frame:
+        lo_node, hi_node = n_side // 4 + FRAME_LAYERS, 3 * n_side // 4 - FRAME_LAYERS
+        idx = np.indices(grid.dims).reshape(dim, -1).T
+        held = np.any((idx < lo_node) | (idx > hi_node), axis=1)
+        grid = grid.replace(
+            dirichlet_mask=torch.as_tensor(np.repeat(held[:, None], dim, axis=1), device=dev),
+            dirichlet_value=torch.zeros((grid.n_nodes, dim), dtype=p.x.dtype, device=dev))
+    speeds = [np.sqrt(r["compressibility"] / r["rho0"]) if "Fluid" in name
+              else np.sqrt(r["E"] / r["rho0"]) for (name, _), r in zip(strips, rows)]
+    cfg = cfg.replace(kinds=tuple(sorted({r["kind"] for r in rows})),
+                      dt=0.25 * h / max(speeds))
+    return grid, p, mats, cfg, h, eps0
+
+
+MODEL_FIELDS = ("x", "v", "F", "stress", "stress_zz", "bemi", "bemi_zz", "eps", "kappa",
+                "back_stress", "W")
+
+
+def _check_models_state(label, p, diag):
+    """Every active field finite, every diagnostic finite, nothing lost."""
+    act = p.active
+    for name in MODEL_FIELDS:
+        if not bool(torch.isfinite(getattr(p, name)[act]).all()):
+            raise PhaseError(f"{label}: non-finite {name} on an active particle")
+    for key, val in diag.items():
+        if not bool(torch.isfinite(val.double()).all()):
+            raise PhaseError(f"{label}: non-finite diagnostic {key}")
+    lost = int(diag["lost"].sum())
+    if lost != 0:
+        raise PhaseError(f"{label}: {lost} particles lost")
+
+
+def _plastic_shares(p, eps0, strips):
+    """Per kind: the share of its active particles whose eps grew."""
+    act = p.active
+    shares = {}
+    for i, (name, _) in enumerate(strips):
+        sel = act & (p.mat_id == i)
+        grew = (p.eps[sel] > eps0[i]).double()
+        shares[name] = float(grew.mean()) if grew.numel() else float("nan")
+    return shares
+
+
+def phase_models(device, dim):
+    """Every kind of ``MODEL_STRIPS`` on the main path's problem, through
+    ``to_slot_layout`` + ``run`` on the fused kernels: warm-up steps, then
+    timed steps with the launch counts set to 0 just before and read just
+    after; each plastic kind must yield on 5-95 % of its particles."""
+    from nlpartsol_tpu_torch.formulations.explicit import run
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+
+    spec = MODELS[dim]
+    label = "models" + _suffix(dim)
+    grid, p0, mats, cfg, h, eps0 = build_models(dim, PROBLEMS[dim]["n_side"], device)
+    p1, diag = run(p0, grid, mats, cfg, spec["warm"])
+    _check_models_state(label + ":warm-up", p1, diag)
+    ft.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p2, diag = run(p1, grid, mats, cfg, spec["steps"])
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(ft.launch_counts)
+    _check_models_state(label, p2, diag)
+    steps = spec["steps"]
+    want = {f"lme_scatter{dim}d:solve": steps, f"lme_scatter{dim}d:G": steps,
+            f"lme_gather{dim}d:N+grad": steps, f"lme_gather{dim}d:N": steps}
+    if counts != want:
+        raise PhaseError(f"{label}: launch counts {counts}, expected {want}")
+    strips = MODEL_STRIPS[dim]
+    shares = _plastic_shares(p2, eps0, strips)
+    lo, hi = PLASTIC_SHARE
+    outside = {k: v for k, v in shares.items() if k in PLASTIC_KINDS and not lo <= v <= hi}
+    total_nnz = int(diag["nnz"].long().sum())
+    say(phase=label, grid="x".join(map(str, grid.dims)), particles=p0.count,
+        kinds=[name for name, _ in strips], dt=cfg.dt, warmup_steps=spec["warm"], steps=steps,
+        ms_per_step=1e3 * seconds / steps, host_ms_per_step=1e3 * host_s / steps,
+        nnz_per_s=total_nnz / seconds, launches=counts, lost=0, finite=True,
+        plastic_share=shares, plastic_share_limits=PLASTIC_SHARE,
+        kinetic_energy=float(diag["kinetic_energy"][-1]),
+        strain_energy=float(diag["strain_energy"][-1]))
+    if outside:
+        raise PhaseError(f"{label}: plastic share outside {PLASTIC_SHARE}: {outside}")
+    return grid, p0, mats, cfg, h
+
+
+def phase_models_parity(grid, p0, mats, cfg, h):
+    """The same steps from the same state through the fused kernels and the
+    windowed engine on the card, by pid: rel_dx < 1e-3, rel_dv < 1e-2, and
+    per kind the eps gap over its largest value within MODELS_EPS_GAP."""
+    from nlpartsol_tpu_torch.formulations.explicit import run
+
+    dim = grid.dim
+    label = "models_parity" + _suffix(dim)
+    steps = MODELS[dim]["parity_steps"]
+    pf, diag_f = run(p0, grid, mats, cfg, steps)
+    _check_models_state(label + ":fused", pf, diag_f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pw, diag_w = run(p0, grid, mats, cfg.replace(transfer="windowed", rebin_every=1), steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _check_models_state(label + ":windowed", pw, diag_w)
+    rel_dx, rel_dv, (mid_f, mid_w), (eps_f, eps_w) = _parity(
+        pf, pw, h, label, names=("x", "v", "mat_id", "eps"))
+    if not bool((mid_f == mid_w).all()):
+        raise PhaseError(f"{label}: material ids differ by pid")
+    gaps = {}
+    for i, (name, _) in enumerate(MODEL_STRIPS[dim]):
+        sel = mid_w == i
+        scale = max(float(eps_w[sel].abs().max()), 1e-30)
+        gaps[name] = float((eps_f[sel] - eps_w[sel]).abs().max()) / scale
+    ok = rel_dx < 1e-3 and rel_dv < 1e-2 and max(gaps.values()) < MODELS_EPS_GAP
+    say(phase=label, steps=steps, rel_dx=rel_dx, rel_dv=rel_dv, limit_dx=1e-3,
+        limit_dv=1e-2, eps_gap=gaps, limit_eps_gap=MODELS_EPS_GAP,
+        windowed_ms_per_step=1e3 * seconds / steps, ok=ok)
+    if not ok:
+        raise PhaseError(f"{label}: rel_dx {rel_dx}, rel_dv {rel_dv}, eps gaps {gaps}")
+
+
+MODELS_FN_ROWS = 65536
+# the CPU float32 reference runs on every 8th of them (each row's update is
+# independent of the others; the whole set costs the CPU most of a minute)
+MODELS_FN_CPU_STRIDE = 8
+# a row whose trial yield value lies within this share of its principal
+# trial stress of zero may take the other branch under rounding: counted,
+# not compared
+YIELD_BAND = 1e-5
+# card float32 against CPU float32 on the same inputs, per output, as a
+# share of the output's largest magnitude over the compared rows: four times
+# the CPU's own float32 against float64 spread on these inputs, the largest
+# over 2D and 3D (tests/torch_models_probe.py fn-spread; floor 1e-6)
+MODELS_FN_TOL = {
+    "Von-Mises": dict(max=2e-2, q99=5e-4),
+    "Drucker-Prager": dict(max=4e-2, q99=2e-5),
+    # the frictional family's float32 Newton scatters on a few rows
+    # (PERF.md §6): held at its 99th percentile and median
+    "Matsuoka-Nakai": dict(q99=2e-5, median=3e-6),
+    "Lade-Duncan": dict(q99=3e-4, median=3e-6),
+    "Modified-Lade-Duncan": dict(q99=3e-4, median=6e-6),
+    "Hencky": dict(max=3e-4, q99=1e-6),
+    "Mooney-Rivlin": dict(max=1e-5, q99=1e-6),
+    "Linear-Elastic": dict(max=1e-6, q99=1e-6),
+    "Newtonian-Fluid-Compressible": dict(max=2e-6, q99=1e-6),
+    "Bingham-Fluid": dict(max=2e-6, q99=1e-6),
+}
+
+
+def _model_fn_inputs(name, row, dim, n, seed):
+    """``n`` states of one kind from numpy ``seed``: strains spread over
+    five decades, elastic and plastic (and for Drucker-Prager and the
+    frictional family tensile, apex) states; the last sixteenth of the rows
+    at rest (equal eigenvalues), the sixteenth before it with F = ΔF = 0."""
+    rng = np.random.default_rng(seed)
+    eye = np.eye(dim)
+
+    def spread(lo, hi, shape=()):
+        return 10.0 ** rng.uniform(np.log10(lo), np.log10(hi), (n,) + shape)
+
+    def sym(a):
+        return 0.5 * (a + np.swapaxes(a, -1, -2))
+
+    F = eye + spread(1e-6, 0.3)[:, None, None] * rng.standard_normal((n, dim, dim))
+    DF = eye + spread(1e-7, 1e-2)[:, None, None] * rng.standard_normal((n, dim, dim))
+    dFdt = spread(1e-3, 1e2)[:, None, None] * rng.standard_normal((n, dim, dim))
+    e = spread(1e-7, 1e-2)[:, None, None] * sym(rng.standard_normal((n, dim, dim)))
+    vol = np.zeros(n)
+    eps = np.zeros(n)
+    kappa = np.zeros(n)
+    back = np.zeros((n, 3))
+    if name == "Von-Mises":
+        eps = rng.uniform(0.0, 0.01, n)
+        back = 1e3 * rng.standard_normal((n, 3))
+        back -= back.mean(axis=1, keepdims=True)
+    elif name == "Drucker-Prager":
+        vol = rng.uniform(-1e-3, 5e-4, n)  # compression and tension (apex)
+        eps = rng.uniform(0.0, 0.01, n)
+        # on the hardening law κ0·(1 + ε/ε0)^{1/m}
+        kappa = row["kappa0"] * (1.0 + eps / row["plastic_strain_0"]) ** (
+            1.0 / row["exponent_ortiz"])
+    elif name in FRICTIONAL_KINDS:
+        K = row["E"] / (3.0 * (1.0 - 2.0 * row["nu"]))
+        vol = -CONFINEMENT / (3.0 * K) * rng.uniform(-0.5, 3.0, n)  # some in tension
+        kappa = MODEL_KAPPA0[2][name] * rng.uniform(0.3, 3.0, n)  # on κ̂_φ = a1·Λ
+        eps = kappa / row["a1_borja"]
+    bemi = np.expm1(2.0 * (e + vol[:, None, None] * eye))
+    bemi_zz = np.expm1(2.0 * (vol + e[:, 0, 0] * (dim == 2)))
+    k = n // 16
+    F[-k:], DF[-k:], dFdt[-k:], bemi[-k:], bemi_zz[-k:] = eye, eye, 0.0, 0.0, 0.0
+    F[-2 * k:-k], DF[-2 * k:-k] = 0.0, 0.0
+    if dim == 3:
+        bemi_zz[:] = 0.0
+    return dict(F_n1=F, DF=DF, dFdt_n1=dFdt, bemi=bemi, bemi_zz=bemi_zz, eps=eps,
+                kappa=kappa, back_stress=back)
+
+
+def _trial_yield(name, row, inp):
+    """The trial yield value of a plastic kind and its row's principal trial
+    stress scale, in float64 on the CPU (the models' own trial step)."""
+    from nlpartsol_tpu_torch.models import borja, druckerprager as dp, vonmises as vm
+    from nlpartsol_tpu_torch.models.materials import bulk_shear, lame_parameters
+    from nlpartsol_tpu_torch.models.spectral import hencky_from_wm1, trial_bemi
+
+    t = {k: torch.as_tensor(v, dtype=torch.float64) for k, v in inp.items()}
+    par = {k: torch.tensor(float(v), dtype=torch.float64) for k, v in row.items() if k != "kind"}
+    Eh = hencky_from_wm1(trial_bemi(t["bemi"], t["bemi_zz"], t["DF"])[0])
+    tr = Eh.sum(-1, keepdim=True)
+    if name in FRICTIONAL_KINDS:
+        lam, G = lame_parameters(par["E"], par["nu"])
+        T = lam * tr + 2.0 * G * Eh
+        F0 = borja._yield_fns(name.lower(), pa=par["atmospheric_pressure"],
+                              m=par["m_frictional"])[0](borja._Principal(T), t["kappa"])
+        return F0, T.abs().amax(-1)
+    K, G = bulk_shear(par["E"], par["nu"])
+    dev = 2.0 * G * (Eh - tr / 3.0)
+    if name == "Von-Mises":
+        dev = dev - t["back_stress"]
+        k_iso, _ = vm._kappa(par["kappa0"], t["eps"], par["hardening_modulus"],
+                             par["theta_voce"], par["K0_voce"], par["Kinf_voce"],
+                             par["delta_voce"])
+        J2 = dev.norm(dim=-1)
+        return J2 - vm.SQ23 * k_iso, (K * tr + dev).abs().amax(-1)
+    alpha_F, _, beta = dp.cone_parameters(par["friction_angle"], par["dilatancy_angle"],
+                                          inp["DF"].shape[-1])
+    J2 = dev.norm(dim=-1)
+    p = -K * tr[..., 0]
+    return J2 - 3.0 * alpha_F * p - beta * t["kappa"], (K * tr + dev).abs().amax(-1)
+
+
+def model_fn_compare(dim, name, row, table, index, device, dtype, seed):
+    """One kind's stress update on ``device`` in ``dtype`` over
+    MODELS_FN_ROWS states against the CPU float32 one on every
+    MODELS_FN_CPU_STRIDE-th of them.  Per output, each row's largest
+    difference over the output's largest magnitude: its maximum, 99th
+    percentile and median over the compared rows (neither in the yield band
+    nor with F = 0, whose values are the reference's garbage).  Also the
+    yield-band row count, the share of rows whose eps changed, and the count
+    of F = 0 rows whose non-finite entries differ."""
+    from nlpartsol_tpu_torch.models import dispatch
+
+    full = _model_fn_inputs(name, row, dim, MODELS_FN_ROWS, seed)
+    stride = MODELS_FN_CPU_STRIDE
+
+    def call(dev, dt, inp):
+        kw = {k: torch.as_tensor(v, dtype=dt, device=dev) for k, v in inp.items()}
+        mats = table(dev, dt)
+        mid = torch.full((len(inp["eps"]),), index, dtype=torch.int32, device=dev)
+        out = dispatch.stress_integration(mat_id=mid, mats=mats, kinds=(row["kind"],), **kw)
+        return {k: v.double().cpu() for k, v in out._asdict().items() if k != "failed"}
+
+    got = {k: v[::stride] for k, v in call(device, dtype, full).items()}
+    inp = {k: v[::stride] for k, v in full.items()}
+    ref = call("cpu", torch.float32, inp)
+    n = len(inp["eps"])
+    zero_F = torch.zeros(MODELS_FN_ROWS, dtype=torch.bool)
+    zero_F[-2 * (MODELS_FN_ROWS // 16):-(MODELS_FN_ROWS // 16)] = True
+    zero_F = zero_F[::stride]
+    keep = ~zero_F
+    if name in PLASTIC_KINDS:
+        phi, scale = _trial_yield(name, row, inp)
+        keep &= ~(phi.abs() <= YIELD_BAND * scale)
+    stats, garbage = {}, 0
+    for key in got:
+        g, r = got[key], ref[key]
+        rows = (n,) + (1,) * (r.ndim - 1)
+        fin_g, fin_r = torch.isfinite(g), torch.isfinite(r)
+        differ = (fin_g != fin_r).reshape(n, -1).any(1)
+        garbage += int((differ & zero_F).sum())
+        # away from F = 0 the float32 non-finite entries agree on both sides
+        if dtype == torch.float32 and bool((differ & ~zero_F).any()):
+            raise PhaseError(f"models_fn: {name} {dim}D {key}: non-finite entries differ")
+        both = fin_g & fin_r & keep.reshape(rows)
+        scale = float(r[both].abs().max()) if bool(both.any()) else 0.0
+        err = torch.where(both, (g - r).abs(), torch.zeros_like(r)).reshape(n, -1).amax(1)
+        err = err[keep] / (scale if scale > 0 else 1.0)
+        stats[key] = dict(max=float(err.max()), q99=float(torch.quantile(err, 0.99)),
+                          median=float(err.median()))
+    eps_in = torch.as_tensor(inp["eps"], dtype=torch.float32).double()
+    plastic = float((ref["eps"][keep] != eps_in[keep]).double().mean())
+    return stats, int((~keep).sum() - zero_F.sum()), plastic, garbage
+
+
+def _fn_table(dim):
+    from nlpartsol_tpu_torch.models import materials as M
+
+    rows = [M.material(kind=name, **params) for name, params in MODEL_STRIPS[2]]
+
+    def table(dev, dt):
+        return M.MaterialTable(**{k: torch.as_tensor(
+            np.asarray([r[k] for r in rows]), dtype=torch.int32 if k == "kind" else dt,
+            device=dev) for k in rows[0]})
+
+    return rows, table
+
+
+def phase_models_fn(device):
+    """Each model function on the card in float32 against the same function
+    on the CPU in float32, on MODELS_FN_ROWS states a kind from a numpy seed,
+    in 2D and 3D (the two torch builds)."""
+    results, failed = {}, {}
+    for dim in (2, 3):
+        rows, table = _fn_table(dim)
+        for i, ((name, _), row) in enumerate(zip(MODEL_STRIPS[2], rows)):
+            stats, banded, plastic, garbage = model_fn_compare(
+                dim, name, row, table, i, device, torch.float32, seed=100 * dim + i)
+            tol = MODELS_FN_TOL[name]
+            results[f"{name}/{dim}d"] = dict(rel_err=stats, yield_band_rows=banded,
+                                             plastic_share=plastic,
+                                             zero_F_rows_non_finite_differ=garbage, tol=tol)
+            bad = {f"{key}.{q}": v[q] for key, v in stats.items() for q, lim in tol.items()
+                   if v[q] > lim}
+            if bad:
+                failed[f"{name}/{dim}d"] = bad
+    say(phase="models_fn", rows_per_kind=MODELS_FN_ROWS, yield_band=YIELD_BAND,
+        results=results)
+    if failed:
+        raise PhaseError(f"models_fn: outside tolerance: {failed}")
+
+
 def phase_profile(grid, p1, mats, cfg, label="profile"):
     """Where a step's time goes.  With a re-bin period k > 1: one k-period
     of the main path (k−1 plain steps, one that re-bins).  With k = 1 (the
@@ -2227,7 +2672,7 @@ def main():
     ap.add_argument("--phases", default="kernels,main_path,parity,roofline,implicit,"
                     "implicit_parity,kernels3d,main_path3d,parity3d,roofline3d,implicit3d,"
                     "implicit_parity3d,upw,upw_parity,upw_implicit,upw_implicit_parity,up,"
-                    "up_parity,dem,dem_parity,probes,"
+                    "up_parity,dem,dem_parity,models_fn,models,models_parity,models3d,probes,"
                     "large3d,large",
                     help="comma-separated phases to run after device and build")
     args = ap.parse_args()
@@ -2295,6 +2740,19 @@ def main():
         if path + "_parity" in phases:
             phase_up_dem_parity(device, path)
             torch.cuda.empty_cache()
+    if "models_fn" in phases:
+        phase_models_fn(device)
+    if phases & {"models", "models_parity"}:
+        grid, p0, mats, cfg, h = phase_models(device, 2)
+        if "models_parity" in phases:
+            phase_models_parity(grid, p0, mats, cfg, h)
+        del p0
+        torch.cuda.empty_cache()
+    if "models3d" in phases:
+        grid, p0, mats, cfg, h = phase_models(device, 3)
+        phase_models_parity(grid, p0, mats, cfg, h)
+        del p0
+        torch.cuda.empty_cache()
     if "probes" in phases:
         rows += phase_probes(device)
     # the large legs are optional: only with most of the time limit ahead

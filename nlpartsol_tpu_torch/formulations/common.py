@@ -5,9 +5,16 @@ from __future__ import annotations
 
 import torch
 
+from ..models import materials as M
 from ..ops import transfer
 from ..shapefun import fem, lme
 from ..types import Grid
+
+# The kinds whose stress the implicit, u-p, u-pw and DEM steps take: their
+# J·v differentiates the stress update in forward mode, and a return
+# mapping's forward-mode derivative is ROADMAP.md queue 1 item 12b.
+_HYPERELASTIC_KINDS = (M.SOLID_RIGID, M.SAINT_VENANT_KIRCHHOFF, M.NEO_HOOKEAN)
+_KIND_LABEL = {code: name for name, code in M.KIND_NAMES.items()}
 
 
 def shapefun_eval(cfg, grid, p):
@@ -39,6 +46,19 @@ def check_shapefun(cfg):
         raise ValueError(
             f"the fused transfer implements LME only, not shapefun '{cfg.shapefun}': "
             "use transfer='windowed'"
+        )
+
+
+def check_hyperelastic_kinds(cfg, step: str):
+    """Refuse the material kinds that ``step`` does not take yet (an unknown
+    code is left to the dispatch's ``ValueError``)."""
+    waiting = sorted(k for k in set(cfg.kinds)
+                     if k in _KIND_LABEL and k not in _HYPERELASTIC_KINDS)
+    if waiting:
+        names = ", ".join(f"{k} ({_KIND_LABEL[k]})" for k in waiting)
+        raise NotImplementedError(
+            f"material kind {names} on the {step} step is not ported yet: "
+            "ROADMAP.md queue 1, item 12b, 'Remaining models'"
         )
 
 

@@ -41,8 +41,10 @@ line-search residuals and the re-evaluated one; 2L: one J·v per CG
 iteration; the 3 of the gathers: r₀, and ∇dU and ∇(V − Vₙ) at the end.)
 
 Not ported yet (each raises ``NotImplementedError`` naming its item of
-ROADMAP.md queue 1): ``axis_name``/``rebin_mode='none'`` (item 15),
-``shapefun='gimp'/'alme'`` and ``transfer='binned'`` (item 13).
+ROADMAP.md queue 1): material kinds other than Neo-Hookean,
+Saint-Venant-Kirchhoff and Solid-Rigid (item 12b),
+``axis_name``/``rebin_mode='none'`` (item 15), ``shapefun='gimp'/'alme'``
+and ``transfer='binned'`` (item 13).
 """
 
 from __future__ import annotations
@@ -63,7 +65,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import lme
 from ..types import Grid, Particles
 from . import kinematics as kin
-from .common import check_shapefun, found_lost, make_engine, shapefun_eval
+from .common import (check_hyperelastic_kinds, check_shapefun, found_lost, make_engine,
+                     shapefun_eval)
 from .explicit import _bin_to_slots, to_slot_layout
 from .implicit import _det_clamped
 
@@ -112,6 +115,7 @@ def _check_supported(cfg: DEMConfig, p: Particles):
         raise later("rebin_mode='none'", 15, "Multi-device")
     if cfg.rebin_mode not in ("local", "global"):
         raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")
+    check_hyperelastic_kinds(cfg, "DEM")
     check_shapefun(cfg)
     if cfg.transfer == "binned":
         raise later("transfer 'binned'", 13, "Other shape functions, engines and integrators")

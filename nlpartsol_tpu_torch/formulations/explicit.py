@@ -23,11 +23,12 @@ Plain functions: Particles × nodal inputs → Particles.  Diagnostics stay
 device tensors; nothing in a step waits on the host.
 
 Not ported yet (each raises ``NotImplementedError`` naming its slice of
-ROADMAP.md): ``halo``/``axis_name``/``rebin_mode='none'`` (multi-device),
-``damage`` (remaining models), ``shapefun='gimp'/'alme'``, schemes other
-than ``NPC-FS`` and ``transfer='scatter'/'binned'`` (other shape functions,
-engines and integrators).  ``shapefun='fem'`` runs on the windowed engine;
-the fused kernels compute LME only and refuse it with ``ValueError``.
+ROADMAP.md queue 1): ``halo``/``axis_name``/``rebin_mode='none'`` (item 15),
+``damage`` (nonlocal fracture, item 12c), ``shapefun='gimp'/'alme'``,
+schemes other than ``NPC-FS`` and ``transfer='scatter'/'binned'`` (item 13).
+Every material kind runs, on both engines (item 12a).  ``shapefun='fem'``
+runs on the windowed engine; the fused kernels compute LME only and refuse
+it with ``ValueError``.
 """
 
 from __future__ import annotations
@@ -88,24 +89,26 @@ class ExplicitConfig:
 
 
 def _check_supported(cfg: ExplicitConfig, p: Particles):
-    def later(what, where):
-        return NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1, '{where}'")
+    def later(what, item, where):
+        return NotImplementedError(
+            f"{what} is not ported yet: ROADMAP.md queue 1, item {item}, '{where}'")
 
     if p.dim not in (2, 3):
         raise ValueError(f"explicit steps run in 2D and 3D, not {p.dim}D")
     if cfg.halo is not None or cfg.axis_name is not None:
-        raise later("halo / axis_name sharding", "Multi-device")
+        raise later("halo / axis_name sharding", 15, "Multi-device")
     if cfg.rebin_mode == "none":
-        raise later("rebin_mode='none'", "Multi-device")
+        raise later("rebin_mode='none'", 15, "Multi-device")
     if cfg.rebin_mode not in ("local", "global"):
         raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")
     if cfg.damage is not None:
-        raise later(f"damage='{cfg.damage}'", "Remaining models")
+        raise later(f"damage='{cfg.damage}'", "12c", "Remaining models")
     if cfg.scheme != "NPC-FS":
-        raise later(f"scheme '{cfg.scheme}'", "Other shape functions, engines and integrators")
+        raise later(f"scheme '{cfg.scheme}'", 13, "Other shape functions, engines and integrators")
     check_shapefun(cfg)
     if cfg.transfer in ("scatter", "binned"):
-        raise later(f"transfer '{cfg.transfer}'", "Other shape functions, engines and integrators")
+        raise later(f"transfer '{cfg.transfer}'", 13,
+                    "Other shape functions, engines and integrators")
     if cfg.transfer not in ("windowed", "fused"):
         raise ValueError(f"unknown transfer {cfg.transfer}")
     if cfg.active_box is None:
@@ -146,9 +149,13 @@ def _kinematics_and_stress(p, mats, cfg, box, DF, act):
         DF = tn.bmm(F_n1, tn.inv(torch.where((p.J > 0)[:, None, None], p.F, eye)))
     dt_DF = (DF - eye) / dt
     dFdt_n1 = kin.rate_deformation_gradient_n1(dt_DF, p.F, DF, p.dFdt)
+    # emptied and padding slots hold F = 0: the models see the identity
+    # there (the fluids invert F, Hencky and Mooney-Rivlin take its log), so
+    # nothing they return is non-finite; active particles are untouched
+    live = act[:, None, None]
     cs = con.stress_integration(
-        F_n1=F_n1,
-        DF=DF,
+        F_n1=torch.where(live, F_n1, eye),
+        DF=torch.where(live, DF, eye),
         dFdt_n1=dFdt_n1,
         bemi=p.bemi,
         bemi_zz=p.bemi_zz,

@@ -35,8 +35,10 @@ tangent, per CG iteration.)  The Newton and Krylov loops read their
 condition on the host once per iteration (``solvers.host_syncs``).
 
 Not ported yet (each raises ``NotImplementedError`` naming its item of
-ROADMAP.md queue 1): ``damage`` (item 12), ``halo``/``axis_name`` and
-``rebin_mode='none'`` (item 15), ``shapefun='gimp'/'alme'`` and
+ROADMAP.md queue 1): material kinds other than Neo-Hookean,
+Saint-Venant-Kirchhoff and Solid-Rigid (item 12b), ``damage`` (item 12c),
+``halo``/``axis_name`` and ``rebin_mode='none'`` (item 15),
+``shapefun='gimp'/'alme'`` and
 ``transfer='scatter'/'binned'`` (item 13).  ``shapefun='fem'`` runs on the
 windowed engine; the fused kernels compute LME only and refuse it with
 ``ValueError``.
@@ -58,7 +60,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import lme
 from ..types import Grid, Particles
 from . import kinematics as kin
-from .common import check_shapefun, found_lost, make_engine, shapefun_eval
+from .common import (check_hyperelastic_kinds, check_shapefun, found_lost, make_engine,
+                     shapefun_eval)
 from .explicit import _bin_to_slots, to_slot_layout
 
 Tensor = torch.Tensor
@@ -146,7 +149,8 @@ def _check_supported(cfg: ImplicitConfig, p: Particles):
     if cfg.rebin_mode not in ("local", "global"):
         raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")
     if cfg.damage is not None:
-        raise later(f"damage='{cfg.damage}'", 12, "Remaining models")
+        raise later(f"damage='{cfg.damage}'", "12c", "Remaining models")
+    check_hyperelastic_kinds(cfg, "implicit")
     check_shapefun(cfg)
     if cfg.transfer in ("scatter", "binned"):
         raise later(f"transfer '{cfg.transfer}'", 13,

@@ -40,8 +40,10 @@ u-pw step, formulations/upw.py), and launches:
 iterate.)  K = n + L/20 when no solve runs all its cycles.
 
 Not ported yet (each raises ``NotImplementedError`` naming its item of
-ROADMAP.md queue 1): ``axis_name``/``rebin_mode='none'`` (item 15),
-``shapefun='gimp'/'alme'`` and ``transfer='binned'`` (item 13).  The step is
+ROADMAP.md queue 1): material kinds other than Neo-Hookean,
+Saint-Venant-Kirchhoff and Solid-Rigid (item 12b),
+``axis_name``/``rebin_mode='none'`` (item 15), ``shapefun='gimp'/'alme'``
+and ``transfer='binned'`` (item 13).  The step is
 dimension-generic like the JAX package's; the tests and ``chip_smoke.py``
 hold it in 2D.
 """
@@ -61,7 +63,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import lme
 from ..types import Grid, Particles
 from . import kinematics as kin
-from .common import check_shapefun, found_lost, make_engine, shapefun_eval
+from .common import (check_hyperelastic_kinds, check_shapefun, found_lost, make_engine,
+                     shapefun_eval)
 from .explicit import _bin_to_slots, to_slot_layout
 from .implicit import (_advance, _balance, _det_clamped, _free_dofs, _increments, _local_state,
                        newmark_parameters)
@@ -111,6 +114,7 @@ def _check_supported(cfg: UpConfig, p: Particles):
         raise later("rebin_mode='none'", 15, "Multi-device")
     if cfg.rebin_mode not in ("local", "global"):
         raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")
+    check_hyperelastic_kinds(cfg, "u-p")
     check_shapefun(cfg)
     if cfg.transfer == "binned":
         raise later("transfer 'binned'", 13, "Other shape functions, engines and integrators")

@@ -57,9 +57,11 @@ residual; the 2 of the gathers: the fixed fields, and the local state at the
 converged iterate.)  K = n + L/20 when no solve runs all its cycles.
 
 Not ported yet (each raises ``NotImplementedError`` naming its item of
-ROADMAP.md queue 1): ``halo``/``axis_name``/``rebin_mode='none'`` (item
-15), ``shapefun='gimp'/'alme'`` and ``transfer='scatter'/'binned'`` (item
-13).  The steps are dimension-generic like the JAX package's; the tests and
+ROADMAP.md queue 1): soil kinds other than Neo-Hookean,
+Saint-Venant-Kirchhoff and Solid-Rigid (item 12b),
+``halo``/``axis_name``/``rebin_mode='none'`` (item 15),
+``shapefun='gimp'/'alme'`` and ``transfer='scatter'/'binned'`` (item 13).
+The steps are dimension-generic like the JAX package's; the tests and
 ``chip_smoke.py`` hold them in 2D.
 """
 
@@ -80,7 +82,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import lme
 from ..types import Grid, Particles, Record
 from . import kinematics as kin
-from .common import check_shapefun, found_lost, make_engine, shapefun_eval
+from .common import (check_hyperelastic_kinds, check_shapefun, found_lost, make_engine,
+                     shapefun_eval)
 from .explicit import _bin_to_slots, to_slot_layout
 from .implicit import newmark_parameters
 
@@ -175,6 +178,7 @@ def _check_supported(cfg, p: Particles):
                     "Other shape functions, engines and integrators")
     if cfg.transfer not in ("windowed", "fused"):
         raise ValueError(f"unknown transfer {cfg.transfer}")
+    check_hyperelastic_kinds(cfg, "u-pw")
     check_shapefun(cfg)
     if cfg.active_box is None:
         raise ValueError(f"{cfg.transfer} transfer requires cfg.active_box")

@@ -1,12 +1,12 @@
 """Batched small-tensor algebra on arrays of shape ``(..., d, d)``.
 
 Counterpart of ``nlpartsol_tpu/ops/tensor.py``: closed-form determinant,
-adjugate and inverse for d in {2, 3}, and the cancellation-free small-strain
-primitives.  The reference unrolls its small matrix products into channel
-arithmetic to keep them off the TPU's matrix unit; here they are a broadcast
-multiply and a sum, to keep them off the BLAS library's batched GEMM (see
-:func:`bmm`).  The symmetric eigen solvers come with the models that need
-them.
+adjugate and inverse for d in {2, 3}, the invariants, the symmetric eigen
+solvers (closed form in 2D, cyclic Jacobi in 3D: no LAPACK or cuSOLVER call)
+and the cancellation-free small-strain primitives.  The reference unrolls
+its small matrix products into channel arithmetic to keep them off the TPU's
+matrix unit; here they are a broadcast multiply and a sum, to keep them off
+the BLAS library's batched GEMM (see :func:`bmm`).
 """
 
 from __future__ import annotations
@@ -62,6 +62,131 @@ def inv(a: Tensor) -> Tensor:
 def inv_transpose(a: Tensor) -> Tensor:
     """a^{-T}: the push-forward operator for shape-function gradients."""
     return inv(a).transpose(-1, -2)
+
+
+def identity_like(a: Tensor) -> Tensor:
+    d = a.shape[-1]
+    return torch.eye(d, dtype=a.dtype, device=a.device).expand(a.shape)
+
+
+def I1(a: Tensor) -> Tensor:
+    return trace(a)
+
+
+def I2(a: Tensor) -> Tensor:
+    t = trace(a)
+    return 0.5 * (t * t - trace(bmm(a, a)))
+
+
+def I3(a: Tensor) -> Tensor:
+    return det(a)
+
+
+def sym(a: Tensor) -> Tensor:
+    return 0.5 * (a + a.transpose(-1, -2))
+
+
+def dev(a: Tensor) -> Tensor:
+    d = a.shape[-1]
+    return a - (trace(a) / d)[..., None, None] * torch.eye(d, dtype=a.dtype, device=a.device)
+
+
+def norm_fro(a: Tensor) -> Tensor:
+    return torch.sqrt(torch.sum(a * a, dim=(-2, -1)))
+
+
+# ---------------------------------------------------------------------------
+# Symmetric eigendecomposition, closed-form 2x2 / Jacobi 3x3.  Not
+# torch.linalg.eigh: that is LAPACK on the CPU and cuSOLVER on the card, two
+# other algorithms than the reference's, and it reads back an error status.
+# ---------------------------------------------------------------------------
+
+
+def _sym_eig2(a: Tensor):
+    a00, a01, a11 = a[..., 0, 0], 0.5 * (a[..., 0, 1] + a[..., 1, 0]), a[..., 1, 1]
+    tr_half = 0.5 * (a00 + a11)
+    diff_half = 0.5 * (a00 - a11)
+    rad = torch.sqrt(diff_half * diff_half + a01 * a01)
+    w0 = tr_half - rad
+    w1 = tr_half + rad
+    # eigenvector of w1: (a01, w1 − a00); on a diagonal tensor the axis of
+    # the larger entry
+    one, zero = torch.ones_like(a00), torch.zeros_like(a00)
+    diag = a01 == 0.0
+    first = a00 >= a11
+    v1x = torch.where(diag, torch.where(first, one, zero), a01)
+    v1y = torch.where(diag, torch.where(first, zero, one), w1 - a00)
+    n1 = torch.sqrt(v1x * v1x + v1y * v1y)
+    v1x, v1y = v1x / n1, v1y / n1
+    v0x, v0y = -v1y, v1x  # v0 orthogonal to v1
+    w = torch.stack([w0, w1], dim=-1)
+    v = torch.stack(
+        [torch.stack([v0x, v1x], dim=-1), torch.stack([v0y, v1y], dim=-1)], dim=-2
+    )
+    return w, v
+
+
+def _jacobi_rotation(A: Tensor, p: int, q: int) -> Tensor:
+    """The rotation G that zeroes A[p, q] in Gᵀ·A·G (stable angle)."""
+    apq, app, aqq = A[..., p, q], A[..., p, p], A[..., q, q]
+    one = torch.ones_like(apq)
+    off = apq == 0.0
+    tau = (aqq - app) / (2.0 * torch.where(off, one, apq))
+    t = torch.sign(tau) / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau))
+    t = torch.where(tau == 0.0, one, t)
+    t = torch.where(off, torch.zeros_like(t), t)
+    c = 1.0 / torch.sqrt(1.0 + t * t)
+    s = t * c
+    entries = {(p, p): c, (q, q): c, (p, q): s, (q, p): -s}
+    zero = torch.zeros_like(c)
+    rows = [
+        torch.stack([entries.get((i, j), one if i == j else zero) for j in range(3)], dim=-1)
+        for i in range(3)
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+def _sym_eig3_jacobi(a: Tensor, sweeps: int = 8):
+    """Cyclic Jacobi for symmetric 3x3 (a fixed number of sweeps, no data-
+    dependent control flow).  Returns eigenvalues ascending and the matrix of
+    column eigenvectors; equal eigenvalues keep their order (stable sort)."""
+    A = sym(a)
+    V = identity_like(A)
+    for _ in range(sweeps):
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            G = _jacobi_rotation(A, p, q)
+            A = bmm(G.transpose(-1, -2), bmm(A, G))
+            V = bmm(V, G)
+    w = torch.diagonal(A, dim1=-2, dim2=-1)
+    w, order = torch.sort(w, dim=-1, stable=True)
+    V = torch.gather(V, -1, order[..., None, :].expand(V.shape))
+    return w, V
+
+
+def sym_eig(a: Tensor):
+    """Eigendecomposition of a symmetric (..., d, d) tensor.
+
+    Returns ``(w, V)`` with eigenvalues ascending and eigenvectors as columns
+    of V, i.e. ``a ≈ V @ diag(w) @ V.T``.
+    """
+    d = a.shape[-1]
+    if d == 2:
+        return _sym_eig2(a)
+    if d == 3:
+        return _sym_eig3_jacobi(a)
+    raise ValueError(f"sym_eig: unsupported dim {d}")
+
+
+def sym_from_eig(w: Tensor, V: Tensor) -> Tensor:
+    """Rebuild a symmetric tensor from eigenvalues/eigenvectors."""
+    return bmm_t(V * w[..., None, :], V)
+
+
+def sym_func(a: Tensor, fn) -> Tensor:
+    """Apply a scalar function to a symmetric tensor through its spectrum
+    (e.g. ``sym_func(b_e, torch.log)`` for Hencky strain)."""
+    w, V = sym_eig(a)
+    return sym_from_eig(fn(w), V)
 
 
 # ---------------------------------------------------------------------------

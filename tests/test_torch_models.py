@@ -10,6 +10,8 @@ import torch
 from nlpartsol_tpu.models import dispatch as jcon, hyperelastic as jhyper, materials as jM
 from nlpartsol_tpu.ops import tensor as jtn
 
+from nlpartsol_tpu_torch.formulations import common
+from nlpartsol_tpu_torch.formulations.implicit import ImplicitConfig
 from nlpartsol_tpu_torch.models import dispatch as tcon, hyperelastic as thyper, materials as tM
 from nlpartsol_tpu_torch.ops import tensor as ttn
 
@@ -98,10 +100,15 @@ def test_stress_integration_blends_kinds_like_jax():
                                    atol=2e-6 * max(np.abs(r).max(), 1.0), err_msg=name)
     assert float(got.tau[torch.as_tensor(mat_id) == 1].abs().max()) == 0.0
 
-    with pytest.raises(NotImplementedError, match="Von-Mises"):
+    # the dispatch takes every kind (tests/test_torch_models_more.py); the
+    # implicit step refuses a return mapping, whose forward-mode J·v waits
+    with pytest.raises(NotImplementedError, match="Von-Mises.*item 12b, 'Remaining models'"):
+        common.check_hyperelastic_kinds(ImplicitConfig(dt=1e-5, kinds=(tM.VON_MISES,)),
+                                        "implicit")
+    with pytest.raises(ValueError, match="unknown material kind"):
         tcon.stress_integration(
             F_n1=torch.as_tensor(F), DF=torch.as_tensor(F), dFdt_n1=torch.zeros(n, 2, 2),
-            mat_id=torch.as_tensor(mat_id), mats=mt, kinds=(tM.VON_MISES,),
+            mat_id=torch.as_tensor(mat_id), mats=mt, kinds=(99,),
             **{k: torch.as_tensor(v) for k, v in state.items()})
     with pytest.raises(ValueError, match="unknown material parameters"):
         tM.material(youngs=1.0)

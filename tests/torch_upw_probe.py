@@ -21,7 +21,8 @@ gmres-f64: the port's and the JAX package's GMRES on one random system,
 largest difference of the solutions over their largest value, float64 and
 float32.
 forward-mode-cost: µs per op of a product with a tensor without tangent,
-under forward mode with dual tensors and without.
+under forward mode with dual tensors and without, and with the same tensor
+made dual with a zero tangent.
 """
 
 import json
@@ -196,8 +197,10 @@ def forward_mode_cost(reps=200):
         d = fwAD.make_dual(x, t)
         dual_plain = us(lambda: d * w)
         dual_dual = us(lambda: d * d)
+        w_zero = fwAD.make_dual(w, torch.zeros_like(w))  # the same w, a zero tangent
+        dual_zero = us(lambda: d * w_zero)
     return dict(torch=torch.__version__, plain_us=plain, dual_times_plain_us=dual_plain,
-                dual_times_dual_us=dual_dual)
+                dual_times_dual_us=dual_dual, dual_times_zero_tangent_dual_us=dual_zero)
 
 
 if __name__ == "__main__":
