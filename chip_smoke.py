@@ -131,6 +131,16 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              particles, a re-bin every step) with Hencky, von Mises,
              Drucker-Prager and Matsuoka-Nakai: 2 warm-up + 4 timed steps,
              then 4 steps of parity (line ``models_parity3d``)
+  deck       the user's entry point at the main path's width: bench.py's
+             problem written as a deck (``DECK``), ``build_simulation`` and
+             ``run_simulation(transfer='auto')`` for 48 steps with VTK every
+             32: fused at k = 16, lost 0, 2 scatters and 2 gathers a step,
+             the VTK files written, parity by pid against ``explicit.run``
+             (``DECK_PARITY``); build, chunk, VTK and GiD-reader seconds
+  decks      one small deck per route of the driver through ``cli.main``
+             (``DECK_ROUTES``: the engine of the JAX rule, launches exactly on
+             the fused routes, finite fields, lost 0), then the reference
+             binary's DEM goldens through the port's builder in float64
   probes     the lane-roll probes: a roll sum checked exactly against
              torch.roll, and timed beside its multiply-add twin at 4 shapes
   large      (if time allows) the fused path alone at the bigger size: 3D
@@ -161,6 +171,8 @@ import numpy as np
 import torch
 
 T_START = time.perf_counter()
+# main_path's ms/step of this run, for the deck phase's line
+REPORT = {}
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, and device-memory rate.  Bounds are stated against these.
@@ -610,6 +622,7 @@ def phase_main_path(device, dim):
     torch.cuda.reset_peak_memory_stats()
     p2, diag, seconds, counts = _timed_run(p1, grid, mats, cfg, steps)
     lost = _check_state(label, p2, diag)
+    REPORT[label] = 1e3 * seconds / steps
     n_active = int(p2.active.sum())
     if n_active != p0.count:
         raise PhaseError(f"{label}: {n_active} active particles of {p0.count}")
@@ -2667,12 +2680,333 @@ def phase_large(device, dim):
         peak_device_bytes=torch.cuda.max_memory_allocated())
 
 
+# ---------------------------------------------------------------------------
+# the deck-driven entry point: io/builder.py → driver.run_simulation / cli.py
+# ---------------------------------------------------------------------------
+
+# bench.py's problem as a deck: a 511² Q4 background on [0, 1]² (512² nodes),
+# a 256² Q4 body over the central half, 4 Gauss-point particles an element
+# (262,144), Neo-Hookean E 1e7, ν 0.3, ρ 1000, LME γ = 3, NPC-FS at CFL 0.25,
+# Cel = √(E/ρ) (bench.py:88); VTK every 32 steps
+DECK = dict(n_side=512, body_cells=256, steps=48, out_every=32, rebin_every=16)
+DECK_PARITY = dict(dx=1e-3, dv=1e-2)  # bench.py:251, against explicit.run
+
+_DECK_TEXT = """NLPS-Solver (Type={scheme}) {{
+    CFL={cfl}
+    Cel={cel!r}
+    N={steps}
+{solver_props}}}
+GramsBox (Type=GID, File=bg.msh) {{
+{boundaries}}}
+GramsShapeFun (Type={shapefun}) {{
+{shape_props}}}
+{materials}{analysis} (File=body.msh, GPxElement={gpx}) {{
+}}
+{extra}GramsOutputs (i={out_every}) {{
+    DIR=out
+}}
+"""
+
+
+_CORNERS = {
+    2: [(0, 0), (1, 0), (1, 1), (0, 1)],
+    3: [(0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0),
+        (0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 1)],
+}
+
+
+def write_grid_mesh(path, cells, h, origin=None):
+    """Write a uniform GiD ASCII mesh of ``cells`` (per axis) elements of
+    side ``h`` from ``origin``: Q4 in 2D, H8 in 3D.  Node ids are 1-based in
+    C order (last axis fastest); element corners go counter-clockwise (in
+    3D the lower face, then the upper), the orders ``io.gid_mesh.seed_particles``
+    and ``element_volumes`` read."""
+    d = len(cells)
+    origin = np.zeros(d) if origin is None else np.asarray(origin, np.float64)
+    nodes = tuple(c + 1 for c in cells)
+    idx = np.stack(np.meshgrid(*[np.arange(n) for n in nodes], indexing="ij"), -1)
+    xyz = origin + h * idx.reshape(-1, d)
+    cell = np.stack(np.meshgrid(*[np.arange(c) for c in cells], indexing="ij"), -1)
+    cell = cell.reshape(-1, d)
+    strides = np.concatenate([np.cumprod(nodes[::-1])[-2::-1], [1]])
+    conn = np.stack([(cell + np.asarray(c)) @ strides for c in _CORNERS[d]], -1) + 1
+    name, nn = ("Quadrilateral", 4) if d == 2 else ("Hexahedra", 8)
+    with open(path, "w") as fh:
+        fh.write(f"MESH dimension {d} ElemType {name} Nnode {nn}\nCoordinates\n")
+        np.savetxt(fh, np.column_stack([np.arange(1, len(xyz) + 1), xyz]),
+                   fmt=["%d"] + ["%.17g"] * d)
+        fh.write("End Coordinates\nElements\n")
+        np.savetxt(fh, np.column_stack([np.arange(1, len(conn) + 1), conn]), fmt="%d")
+        fh.write("End Elements\n")
+    return path
+
+
+def write_deck(directory, n_cells, h, body_cells, body_origin, scheme="NPC-FS", cfl=0.25,
+               cel=100.0, steps=3, shapefun="LME", materials=None, analysis="One-Phase-Analysis",
+               gravity=None, fix_bottom=False, out_every=100, extra="", solver_props=""):
+    """A deck on a uniform GiD background of ``n_cells`` elements of side
+    ``h`` and a body of ``body_cells`` elements from ``body_origin``, both
+    written by :func:`write_grid_mesh`; ``fix_bottom`` holds the
+    nodes of the lowest plane (last axis 0) with a zero curve."""
+    import os
+
+    dim = len(n_cells)
+    os.makedirs(directory, exist_ok=True)
+    write_grid_mesh(os.path.join(directory, "bg.msh"), n_cells, h)
+    write_grid_mesh(os.path.join(directory, "body.msh"), body_cells, h, origin=body_origin)
+    boundaries = ""
+    if fix_bottom:
+        nodes = np.arange(int(np.prod([c + 1 for c in n_cells]))).reshape(
+            [c + 1 for c in n_cells])
+        bottom = nodes[..., 0].reshape(-1)  # the node ids are 0-based rows in C order
+        with open(os.path.join(directory, "bottom.txt"), "w") as fh:
+            fh.write("\n".join(map(str, bottom)) + "\n")
+        with open(os.path.join(directory, "zero.txt"), "w") as fh:
+            fh.write("CONSTANT_CURVE SCALE#0.0\n")
+        comps = "".join(f"        BcDirichlet V.{c} zero.txt\n" for c in "xyz"[:dim])
+        boundaries = f"    GramsBoundary (File=bottom.txt) {{\n{comps}    }}\n"
+    if gravity is not None:
+        extra += "GramsBodyForces {\n" + f"    g.{'xyz'[dim - 1]}={gravity}\n" + "}\n"
+    materials = materials or ("Define-Material (idx=0, Model=Neo-Hookean-Wriggers) {\n"
+                              "    E=1e7\n    nu=0.3\n    rho=1000\n}\n")
+    text = _DECK_TEXT.format(
+        scheme=scheme, cfl=cfl, cel=cel, steps=steps, solver_props=solver_props,
+        boundaries=boundaries,
+        shapefun=shapefun, shape_props="    gamma=3.0\n" if shapefun == "LME" else "",
+        materials=materials, analysis=analysis, gpx=2 ** dim, extra=extra, out_every=out_every)
+    path = os.path.join(directory, "sim.nlp")
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+def phase_deck(device):
+    """bench.py's problem written as a deck and run through the user's entry
+    point: ``build_simulation`` → ``run_simulation(transfer='auto')`` with
+    VTK outputs, launches counted from 0 over the run; parity by pid against
+    the same built particles stepped by ``explicit.run`` with the driver's
+    config."""
+    import os
+    import tempfile
+
+    from nlpartsol_tpu_torch.driver import make_step_config, run_simulation
+    from nlpartsol_tpu_torch.formulations.explicit import run, to_slot_layout
+    from nlpartsol_tpu_torch.io import gid_mesh, native
+    from nlpartsol_tpu_torch.io.builder import build_simulation
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft, windowed
+
+    n, nb, steps = DECK["n_side"], DECK["body_cells"], DECK["steps"]
+    h = 1.0 / (n - 1)
+    lo = n // 4
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = write_deck(tmp, (n - 1,) * 2, h, (nb,) * 2, (lo * h,) * 2, cel=float(np.sqrt(1e4)),
+                          steps=steps, out_every=DECK["out_every"])
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        setup = build_simulation(path, device=device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        # the builder's GiD reader (C++ where g++ built it) beside the
+        # Python one, on the deck's two meshes (warm file cache)
+        gid_read_s = {}
+        for name in ("bg.msh", "body.msh"):
+            for reader, read in (("builder", gid_mesh.read_gid_mesh),
+                                 ("python", gid_mesh._read_gid_mesh_py)):
+                t0 = time.perf_counter()
+                read(os.path.join(tmp, name))
+                gid_read_s[f"{name}:{reader}"] = time.perf_counter() - t0
+        n_p = setup.particles.count
+        if n_p != (2 * nb) ** 2:
+            raise PhaseError(f"deck: {n_p} particles seeded, expected {(2 * nb) ** 2}")
+        # velocities 0.01·N(0,1) from numpy seed 0 in seeding order, as bench.py
+        v = 0.01 * np.random.default_rng(0).standard_normal((n_p, 2)).astype(np.float32)
+        setup.particles = setup.particles.replace(v=torch.as_tensor(v, device=device))
+        p_init = setup.particles
+        box = windowed.default_box(setup.grid, p_init.x.cpu().numpy(), p_init.active.cpu().numpy())
+        cfg = make_step_config(setup, transfer="auto", active_box=box)
+        if cfg.transfer != "fused" or cfg.rebin_every != DECK["rebin_every"]:
+            raise PhaseError(f"deck: config {cfg.transfer} k={cfg.rebin_every}, expected fused "
+                             f"k={DECK['rebin_every']}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        to_slot_layout(p_init, setup.grid, box)
+        torch.cuda.synchronize()
+        layout_s = time.perf_counter() - t0
+
+        os.chdir(tmp)
+        try:
+            ft.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p_out, hist = run_simulation(setup, transfer="auto", n_steps=steps,
+                                         write_outputs=True, progress=False)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            counts = dict(ft.launch_counts)
+            peak = torch.cuda.max_memory_allocated()
+            written = sorted(os.listdir("out"))
+        finally:
+            os.chdir(cwd)
+    want = {"lme_scatter2d:solve": steps, "lme_scatter2d:G": steps,
+            "lme_gather2d:N+grad": steps, "lme_gather2d:N": steps}
+    if counts != want:
+        raise PhaseError(f"deck: launch counts {counts}, expected {want}")
+    if hist["rebin_every"] != DECK["rebin_every"]:
+        raise PhaseError(f"deck: the run ended at k={hist['rebin_every']}")
+    files = ["nodes_000000.vtk", "nodes_000032.vtk", "particles_000000.vtk", "particles_000032.vtk"]
+    if [f for f in written if f.endswith(".vtk")] != files:
+        raise PhaseError(f"deck: wrote {written}, expected {files}")
+    n_active = int(p_out.active.sum())
+    if n_active != n_p or not all(bool(torch.isfinite(getattr(p_out, f)[p_out.active]).all())
+                                  for f in ("x", "v", "F", "stress")):
+        raise PhaseError(f"deck: {n_active} of {n_p} particles active, or non-finite fields")
+    # the 32-step chunk (steps 1-32; step 0 and steps 33-47 are chunks of
+    # their own at the output events' bounds)
+    chunk_s, chunk_steps = hist["chunk_wall_s"][1]
+    p_ref, diag = run(p_init, setup.grid, setup.materials, cfg, steps)
+    rel_dx, rel_dv = _parity(p_out, p_ref, h, "deck")
+    nnz_per_step = float(diag["nnz"].double().mean())
+    ok = rel_dx < DECK_PARITY["dx"] and rel_dv < DECK_PARITY["dv"]
+    st = hist["stage_timings"]
+    say(phase="deck", grid=f"{n}x{n}", particles=n_p, slots=box.n_slots, capacity=box.capacity,
+        transfer=cfg.transfer, rebin_every=hist["rebin_every"], steps=steps,
+        write_deck_s=write_s, build_s=build_s, gid_native=native.available(),
+        gid_read_s=gid_read_s, slot_layout_s=layout_s, run_s=run_s,
+        chunk_steps=chunk_steps, ms_per_step=1e3 * chunk_s / chunk_steps,
+        main_path_ms_per_step=REPORT.get("main_path"),
+        step_chunks_s=st["step_chunks"]["total_s"], vtk_s=st["vtk_output"]["total_s"],
+        vtk_files=len(files), nnz_per_step=nnz_per_step,
+        nnz_per_s=nnz_per_step * chunk_steps / chunk_s, peak_device_bytes=peak,
+        launches=counts, lost=0, rel_dx=rel_dx, rel_dv=rel_dv, limit_dx=DECK_PARITY["dx"],
+        limit_dv=DECK_PARITY["dv"], ok=ok)
+    if not ok:
+        raise PhaseError(f"deck: rel_dx {rel_dx}, rel_dv {rel_dv} against explicit.run")
+
+
+# One small deck per route of the driver, and the engine the JAX package's
+# rule picks for it (nlpartsol_tpu/driver.py:49-87, with its 'pallas' as the
+# port's 'fused'): LME NPC-FS, Newmark-β, Static, DEM and both u-pw schemes
+# and -up Newmark-β on the kernels; FEM, FE and Generalized-α windowed.  The
+# two mixed implicit decks loosen the deck's Newton tolerance
+# (TOL-Newmark-beta): at the default 1e-5 every Newton iteration after the
+# first runs GMRES(20) through all its cycles at the float32 floor (ROADMAP.md
+# queue 3), some 600 J·v a step on a 192-particle deck.
+_SOIL_WATER = ("Define-Material (idx=0, Model=Neo-Hookean-Wriggers) {\n"
+               "    E=1e7\n    nu=0.3\n    rho=2700\n}\n"
+               "Define-Material (idx=1, Model=Newtonian-Fluid-Compressible) {\n"
+               "    rho=1000\n    Compressibility=2.2e7\n}\n"
+               "Define-Mixture (idx=0) {\n    Soil-Idx=0\n    Fluid-Idx=1\n"
+               "    Permeability-Skeleton=1e-5\n    Reference-Volume-Fraction-Soil=0.6\n"
+               "    Reference-Volume-Fraction-Fluid=0.4\n}\n")
+DECK_ROUTES = {
+    # name: (deck options, CLI formulation flag, the engine of the JAX rule)
+    "npcfs_lme_2d": (dict(), "--FORMULATION-U", "fused"),
+    "npcfs_lme_3d": (dict(dim=3), "--FORMULATION-U", "fused"),
+    "npcfs_fem_2d": (dict(shapefun="FEM"), "--FORMULATION-U", "windowed"),
+    "newmark_lme": (dict(scheme="Newmark-beta", cfl=1.0), "--FORMULATION-U", "fused"),
+    "static_lme": (dict(scheme="Static", cfl=1.0), "--FORMULATION-U", "fused"),
+    "forward_euler": (dict(scheme="FE", cfl=0.1), "--FORMULATION-U", "windowed"),
+    "generalized_alpha": (dict(scheme="Generalized-alpha", cfl=0.1), "--FORMULATION-U",
+                          "windowed"),
+    "upw_explicit": (dict(materials=_SOIL_WATER, analysis="Soil-Water-Coupling-One-Layer",
+                          cfl=0.1), "--FORMULATION-Upw", "fused"),
+    "upw_implicit": (dict(materials=_SOIL_WATER, analysis="Soil-Water-Coupling-One-Layer",
+                          scheme="Newmark-beta", cfl=0.5,
+                          solver_props="    TOL-Newmark-beta=1e-2\n"),
+                     "--FORMULATION-Upw", "fused"),
+    "up_newmark": (dict(scheme="Newmark-beta", cfl=1.0,
+                        solver_props="    TOL-Newmark-beta=1e-3\n"),
+                   "--FORMULATION-Up", "fused"),
+    "dem": (dict(scheme="Discrete-Energy-Momentum", cfl=1.0), "--FORMULATION-U", "fused"),
+}
+DECK_ROUTE_STEPS = 3
+GOLDEN_DECKS = ("dem_bar", "dem_svk_bar", "dem_bar3d")
+
+
+def _route_deck(directory, dim=2, cel=100.0, **kw):
+    """A body on the floor of a 16² (3D 15³) background under gravity, its
+    bottom nodes held."""
+    cells = 16 if dim == 2 else 15
+    h = 1.0 / cells
+    body = (8,) * (dim - 1) + (6,)
+    origin = (4 * h,) * (dim - 1) + (0.0,)
+    if "materials" in kw:
+        cel = float(np.sqrt((2.2e7 / 0.4) / (0.6 * 2700 + 0.4 * 1000)))
+    return write_deck(directory, (cells,) * dim, h, body, origin, cel=cel,
+                      steps=DECK_ROUTE_STEPS, gravity=-9.81, fix_bottom=True, **kw)
+
+
+def phase_decks(device):
+    """Every route of the driver through ``cli.main`` on the card (3 steps,
+    ``--no-output``, a backup at the last step to read the state back); then
+    the reference binary's DEM goldens through the port's builder in float64
+    on the card, in one subprocess."""
+    import os
+    import subprocess
+    import tempfile
+
+    from nlpartsol_tpu_torch import cli
+    from nlpartsol_tpu_torch.driver import make_step_config
+    from nlpartsol_tpu_torch.io.builder import build_simulation
+    from nlpartsol_tpu_torch.io.checkpoint import load_checkpoint
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+
+    cwd = os.getcwd()
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (opts, flag, engine) in DECK_ROUTES.items():
+            path = _route_deck(os.path.join(tmp, name), **opts)
+            setup = build_simulation(path, device=device)
+            setup.formulation = {"--FORMULATION-U": "u", "--FORMULATION-Up": "up",
+                                 "--FORMULATION-Upw": "upw"}[flag]
+            picked = make_step_config(setup, transfer="auto").transfer
+            if picked != engine:
+                raise PhaseError(f"decks {name}: engine {picked}, the JAX rule's {engine}")
+            os.chdir(os.path.dirname(path))
+            try:
+                ft.reset_launch_counts()
+                t0 = time.perf_counter()
+                rc = cli.main([flag, "-f", "sim.nlp", "--platform", device, "--no-output",
+                               "--backup-every", str(DECK_ROUTE_STEPS)])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = sum(ft.launch_counts.values())
+                p, step, _ = load_checkpoint(os.path.join("out", "backup.npz"), device=device)
+            finally:
+                os.chdir(cwd)
+            act = p.active
+            finite = all(bool(torch.isfinite(getattr(p, f)[act]).all())
+                         for f in ("x", "v", "a", "F", "stress", "J", "pw"))
+            lost = setup.particles.count - int(act.sum())
+            ok = rc == 0 and step == DECK_ROUTE_STEPS and finite and lost == 0 and \
+                (launches > 0) == (engine == "fused")
+            rows[name] = dict(engine=picked, launches=launches, seconds=seconds,
+                              particles=setup.particles.count, finite=finite, lost=lost, ok=ok)
+            if not ok:
+                raise PhaseError(f"decks {name}: exit code {rc}, step {step}, {rows[name]}")
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                          "_torch_e2e_worker.py")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, worker, "--device", device, *GOLDEN_DECKS],
+                       capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "NLPS_DTYPE": "float64"})
+    golden_s = time.perf_counter() - t0
+    if r.returncode != 0 or "TORCH_E2E_PARITY_OK" not in r.stdout:
+        raise PhaseError(f"decks: DEM goldens failed on the card:\n{r.stdout[-3000:]}"
+                         f"{r.stderr[-3000:]}")
+    say(phase="decks", routes=rows, steps=DECK_ROUTE_STEPS, golden_decks=list(GOLDEN_DECKS),
+        golden_dtype="float64", golden_position_limit=1e-8, golden_s=golden_s, ok=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="kernels,main_path,parity,roofline,implicit,"
                     "implicit_parity,kernels3d,main_path3d,parity3d,roofline3d,implicit3d,"
                     "implicit_parity3d,upw,upw_parity,upw_implicit,upw_implicit_parity,up,"
-                    "up_parity,dem,dem_parity,models_fn,models,models_parity,models3d,probes,"
+                    "up_parity,dem,dem_parity,models_fn,models,models_parity,models3d,deck,decks,probes,"
                     "large3d,large",
                     help="comma-separated phases to run after device and build")
     args = ap.parse_args()
@@ -2752,6 +3086,12 @@ def main():
         grid, p0, mats, cfg, h = phase_models(device, 3)
         phase_models_parity(grid, p0, mats, cfg, h)
         del p0
+        torch.cuda.empty_cache()
+    if "deck" in phases:
+        phase_deck(device)
+        torch.cuda.empty_cache()
+    if "decks" in phases:
+        phase_decks(device)
         torch.cuda.empty_cache()
     if "probes" in phases:
         rows += phase_probes(device)

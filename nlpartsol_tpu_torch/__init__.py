@@ -3,9 +3,21 @@
 A second package beside the JAX reference ``nlpartsol_tpu``: the same
 directory layout and function names, plain functions on ``torch`` tensors,
 frozen dataclasses for state, and hand-written CUDA kernels (``csrc/``) in
-place of the reference's fused transfer kernels.  Ported so far: the 2D
-explicit Newmark predictor-corrector step with LME shape functions on a
-structured grid (``formulations/explicit.py``).
+place of the reference's fused transfer kernels.
+
+Entry points for a user: ``cli.py`` (``nl-partsol-torch --FORMULATION-U -f
+sim.nlp``, or ``python -m nlpartsol_tpu_torch.cli``), and in Python
+``io.builder.build_simulation`` (a ``.nlp`` deck with its GiD meshes) then
+``driver.run_simulation`` (the time loop with VTK/CSV outputs and
+checkpoints).  The paths they reach, in 2D and 3D on structured grids with
+LME or FEM shape functions: the explicit NPC-FS step
+(``formulations/explicit.py``), Forward-Euler and Generalized-α
+(``integrators.py``), implicit Newmark-β and quasi-static
+(``implicit.py``), the soil-water mixture explicit and implicit
+(``upw.py``), mixed u-p (``up.py``) and Discrete Energy-Momentum
+(``dem.py``), with every constitutive model of the reference on the
+explicit step.  What is not ported yet raises ``NotImplementedError``
+naming its item of ROADMAP.md queue 1.
 
 Entry points create their tensors on ``device="cuda"`` unless the caller
 asks for another device; nothing falls back to the CPU on its own.

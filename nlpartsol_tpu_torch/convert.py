@@ -132,7 +132,7 @@ def config_from_fields(fields: dict) -> ExplicitConfig:
     """ExplicitConfig from the static fields of the JAX package's
     ExplicitConfig (see :func:`_config_from_fields`)."""
     # options of the reference that the port has not reached yet
-    waiting = {"alme_params": None, "beps_reach": 1, "ga_rb": 0.6, "prebinned": False}
+    waiting = {"alme_params": None, "beps_reach": 1, "prebinned": False}
     return _config_from_fields(ExplicitConfig, fields, waiting)
 
 

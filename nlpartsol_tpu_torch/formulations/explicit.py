@@ -24,8 +24,9 @@ device tensors; nothing in a step waits on the host.
 
 Not ported yet (each raises ``NotImplementedError`` naming its slice of
 ROADMAP.md queue 1): ``halo``/``axis_name``/``rebin_mode='none'`` (item 15),
-``damage`` (nonlocal fracture, item 12c), ``shapefun='gimp'/'alme'``,
-schemes other than ``NPC-FS`` and ``transfer='scatter'/'binned'`` (item 13).
+``damage`` (nonlocal fracture, item 12c), ``shapefun='gimp'/'alme'`` and
+``transfer='scatter'/'binned'`` (item 13).  The schemes 'FE' and
+'Generalized-alpha' are formulations/integrators.py's steps.
 Every material kind runs, on both engines (item 12a).  ``shapefun='fem'``
 runs on the windowed engine; the fused kernels compute LME only and refuse
 it with ``ValueError``.
@@ -82,7 +83,11 @@ class ExplicitConfig:
     #       loudly in the 'lost' diagnostic)
     #   'global' — sort-based binning at step start (required with tractions)
     rebin_mode: str = "local"
+    # 'NPC-FS' for this step; 'FE' and 'Generalized-alpha' select
+    # formulations/integrators.py in the driver (with ga_rb, the
+    # Generalized-alpha spectral radius)
     scheme: str = "NPC-FS"
+    ga_rb: float = 0.6
 
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
@@ -104,7 +109,10 @@ def _check_supported(cfg: ExplicitConfig, p: Particles):
     if cfg.damage is not None:
         raise later(f"damage='{cfg.damage}'", "12c", "Remaining models")
     if cfg.scheme != "NPC-FS":
-        raise later(f"scheme '{cfg.scheme}'", 13, "Other shape functions, engines and integrators")
+        raise ValueError(
+            f"scheme '{cfg.scheme}' is not this step's: use "
+            "formulations.integrators.forward_euler_step / generalized_alpha_step "
+            "(driver.run_simulation dispatches on the scheme)")
     check_shapefun(cfg)
     if cfg.transfer in ("scatter", "binned"):
         raise later(f"transfer '{cfg.transfer}'", 13,

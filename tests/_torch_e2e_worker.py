@@ -1,31 +1,25 @@
 """End-to-end head-to-head worker for the PyTorch port (run by
-tests/test_torch_dem_golden.py in a subprocess: float64 must not leak into
-the main test process).
+tests/test_torch_dem_golden.py in a subprocess, and by chip_smoke.py on the
+card: float64 must not leak into the calling process).
 
-Builds a committed reference deck (tests/golden/<deck>/sim.nlp) with the JAX
-package's .nlp parser and builder and its ``driver.make_step_config(setup,
-transfer="scatter")``, in float64; carries the particles, grid, materials and
-step configuration over to the port through ``convert.py`` (float64, on the
-CPU); then steps the PORT's ``dem_step`` on its scatter engine with the
+    python tests/_torch_e2e_worker.py [--device cuda] dem_bar [dem_svk_bar ...]
+
+Builds each committed reference deck (tests/golden/<deck>/sim.nlp) with the
+PORT's .nlp parser and builder and its ``driver.make_step_config(setup,
+transfer="scatter")``, in float64 on the given device (the CPU by default);
+then steps the port's ``dem_step`` on its scatter engine with the
 reference's average-strain stress rule, and asserts agreement with the
 reference binary's trajectory (tests/golden/<deck>/trajectory.csv) with the
 checks of tests/_e2e_worker.py unchanged: positions to 1e-8, velocities to
 1e-6, midpoint second Piola stress to 1e-6 relative, at steps 0, 5, 10, 15
-and 19.
+and 19.  Imports nothing of JAX.
 """
 
-import dataclasses
+import argparse
 import os
 import sys
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-from nlpartsol_tpu import config
-
-config.set_dtype("float64")
 
 import numpy as np
 import torch
@@ -35,53 +29,26 @@ from nlpartsol_tpu_torch import config as tconfig
 tconfig.set_dtype("float64")
 
 
-def _fields(obj):
-    return {f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
-
-
-def port_records(setup, cfg):
-    """The deck's particles, grid, materials and DEM configuration as the
-    port's records, on the CPU."""
-    from nlpartsol_tpu_torch import convert
-
-    g = setup.grid
-
-    def opt(a):
-        return None if a is None else np.asarray(a)
-
-    grid = convert.grid_from_numpy(
-        g.dims, g.spacing, g.origin, active=opt(g.active), dirichlet_mask=opt(g.dirichlet_mask),
-        dirichlet_value=opt(g.dirichlet_value), valid_lo=opt(g.valid_lo),
-        valid_hi=opt(g.valid_hi), device="cpu")
-    p = convert.particles_from_numpy(_fields(setup.particles), device="cpu")
-    mats = convert.materials_from_numpy(_fields(setup.materials), device="cpu")
-    tcfg = convert.dem_config_from_fields(
-        {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
-    return p, grid, mats, tcfg
-
-
-def main():
-    from nlpartsol_tpu.driver import make_step_config
-    from nlpartsol_tpu.io.builder import build_simulation
-    from nlpartsol_tpu.models.materials import SAINT_VENANT_KIRCHHOFF, lame_parameters
+def check_deck(deck_name, device):
+    from nlpartsol_tpu_torch.driver import make_step_config
     from nlpartsol_tpu_torch.formulations.dem import dem_step
+    from nlpartsol_tpu_torch.io.builder import build_simulation
+    from nlpartsol_tpu_torch.models.materials import SAINT_VENANT_KIRCHHOFF, lame_parameters
 
-    torch.set_num_threads(1)
-    deck_name = sys.argv[1] if len(sys.argv) > 1 else "dem_bar"
     deck = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", deck_name)
-    setup = build_simulation(os.path.join(deck, "sim.nlp"))
+    setup = build_simulation(os.path.join(deck, "sim.nlp"), device=device)
     gold = np.genfromtxt(os.path.join(deck, "trajectory.csv"), delimiter=",", names=True)
     assert setup.solver.scheme == "Discrete-Energy-Momentum"
     d = setup.grid.dim
     cfg = make_step_config(setup, transfer="scatter").replace(stress_mode="average-strain")
-    p, grid, mats, tcfg = port_records(setup, cfg)
-    assert tcfg.transfer == "scatter" and p.x.dtype == torch.float64
-    body = torch.zeros((d,), dtype=torch.float64)
+    p, grid, mats = setup.particles, setup.grid, setup.materials
+    assert cfg.transfer == "scatter" and p.x.dtype == torch.float64
+    body = torch.zeros((d,), dtype=torch.float64, device=device)
     states = {}
     for k in range(setup.solver.n_steps):
-        p, diag = dem_step(p, grid, mats, tcfg, body)
+        p, diag = dem_step(p, grid, mats, cfg, body)
         assert bool(diag["converged"])
-        states[k] = (p.x.numpy().copy(), p.v.numpy().copy(), p.F.numpy().copy())
+        states[k] = tuple(t.cpu().numpy().copy() for t in (p.x, p.v, p.F))
 
     xcols = ["x", "y", "z"][:d]
     vcols = ["vx", "vy", "vz"][:d]
@@ -102,12 +69,10 @@ def main():
     assert len(set(perm)) == len(perm), "particle matching not a bijection"
     assert dist.min(axis=1).max() < 1e-9, "first-state positions do not match"
 
-    lam, G = lame_parameters(
-        setup.materials.E[setup.particles.mat_id],
-        setup.materials.nu[setup.particles.mat_id],
-    )
-    lam = np.array(lam)[perm]
-    G = np.array(G)[perm]
+    mat_id = setup.particles.mat_id.long()
+    lam, G = lame_parameters(setup.materials.E[mat_id], setup.materials.nu[mat_id])
+    lam = lam.cpu().numpy()[perm]
+    G = G.cpu().numpy()[perm]
     eye = np.eye(d)
 
     # golden step k = state after step k (Particles_k.vtk convention)
@@ -116,7 +81,7 @@ def main():
         gx = np.stack([gk[c] for c in xcols], -1)
         gv = np.stack([gk[c] for c in vcols], -1)
         x_o, v_o, F1 = states[gs]
-        F0 = states[gs - 1][2] if gs > 0 else np.array(setup.particles.F)
+        F0 = states[gs - 1][2] if gs > 0 else setup.particles.F.cpu().numpy()
         np.testing.assert_allclose(x_o[perm], gx, rtol=0, atol=1e-8)
         np.testing.assert_allclose(v_o[perm], gv, rtol=0, atol=1e-6)
         # golden STRESS = the DEM midpoint average-strain SECOND PIOLA
@@ -143,6 +108,17 @@ def main():
             np.testing.assert_allclose(
                 S[:, i, j], gk[name], rtol=0, atol=1e-6 * scale
             )
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("decks", nargs="*", default=["dem_bar"])
+    ap.add_argument("--device", default="cpu")
+    args = ap.parse_args()
+    torch.set_num_threads(1)
+    for deck in args.decks:
+        check_deck(deck, args.device)
+        print(f"{deck}: the golden trajectory held on {args.device}", flush=True)
     print("TORCH_E2E_PARITY_OK")
 
 

@@ -21,13 +21,13 @@ torch.set_num_threads(1)
         ([dict(rebin_mode="none")], "Multi-device"),
         ([dict(damage="eigenerosion")], "item 12c, 'Remaining models'"),
         ([dict(shapefun="gimp")], "Other shape functions"),
-        ([dict(scheme="FE")], "Other shape functions"),
+        ([dict(shapefun="alme")], "Other shape functions"),
         ([dict(transfer="scatter")], "Other shape functions"),
         ([dict(transfer="binned")], "Other shape functions"),
         # the implicit step: a return mapping's forward-mode J·v waits
         ([dict(kinds=(tM.DRUCKER_PRAGER,))], "Drucker-Prager.*item 12b, 'Remaining models'"),
     ],
-    ids=["halo,axis_name", "rebin_mode=none", "damage", "shapefun=gimp", "scheme=FE",
+    ids=["halo,axis_name", "rebin_mode=none", "damage", "shapefun=gimp", "shapefun=alme",
          "transfer=scatter", "transfer=binned", "kinds=Drucker-Prager"],
 )
 def test_what_waits_raises_not_implemented(changes, match):

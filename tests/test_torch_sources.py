@@ -15,10 +15,13 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "nlpartsol_tpu_torch"
 FORBIDDEN = ("jax", "flax", "nlpartsol_tpu")
-# one case per part of the port; the package's own modules under "package"
+# one case per part of the port; the package's own modules, with its io and
+# utils subpackages (the entry points' layer), under "package" (a case each
+# would take this file past the 8 tests a port test file may hold)
 PARTS = {
     "chip_smoke": [ROOT / "chip_smoke.py"],
-    "package": sorted(PACKAGE.glob("*.py")),
+    "package": sorted(PACKAGE.glob("*.py"))
+    + [p for sub in ("io", "utils") for p in sorted((PACKAGE / sub).rglob("*.py"))],
     **{sub: sorted((PACKAGE / sub).rglob("*.py"))
        for sub in ("formulations", "models", "ops", "shapefun")},
 }
