@@ -4,11 +4,14 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``nlpartsol_tpu_torch/csrc`` (one ``nvcc`` per
-source, all started together) and drives the port's nine paths — the 2D
-and the 3D explicit LME step, the 2D and 3D implicit Newmark step, the 2D
+source, all started together) and drives the port's paths — the 2D and
+the 3D explicit LME step, the 2D and 3D implicit Newmark step, the 2D
 explicit and implicit soil-water mixture (u-pw) step, the 2D mixed u-p and
-Discrete Energy-Momentum (DEM) steps, and the explicit step with every
-constitutive model in 2D and 3D, on the fused kernels — on the card.  Each phase
+Discrete Energy-Momentum (DEM) steps, the explicit step with every
+constitutive model in 2D and 3D, and nonlocal fracture on the explicit
+(2D, 3D) and implicit steps, on the fused kernels; uGIMP and aLME on the
+windowed engine; the scatter engine on every step that takes it; the deck
+entry point — on the card.  Each phase
 prints one JSON line; any failure ends the run with a non-zero exit code.
 Without a CUDA device the script fails at once.
 
@@ -139,8 +142,42 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              (``DECK_PARITY``); build, chunk, VTK and GiD-reader seconds
   decks      one small deck per route of the driver through ``cli.main``
              (``DECK_ROUTES``: the engine of the JAX rule, launches exactly on
-             the fused routes, finite fields, lost 0), then the reference
-             binary's DEM goldens through the port's builder in float64
+             the fused routes, finite fields, lost 0; fracture from the
+             deck's Fracture-Modulus key on the fused and windowed explicit
+             and the Newmark-β routes, at a re-bin every step; uGIMP; aLME
+             with β finite and pulled back), then
+             the reference binary's DEM goldens through the port's builder
+             in float64
+  fracture   eigenerosion, then eigensoftening, on the main path's problem
+             (bench.py's 512², 262,144 particles) with a central band of 2×8
+             cells pre-stretched to F_xx = 1.3 and the halves pulled apart
+             (``FRACTURE_BAND``), Ceps 1.5 (reach 2), fused at a re-bin
+             every step in a capacity-6 box of 264² cells; 4 warm-up + 16
+             timed steps a driver: 2 scatters and 2 gathers a step, lost 0,
+             finite fields, the band's eroded or triggered share within
+             ``FRACTURE_BAND_SHARE`` and nothing touched beyond 2·Ceps·h of
+             it; ms a step, the Beps sums' ms and kernels a call (CUDA
+             events, torch.profiler), the re-bin's share; the card's Beps
+             sums against a float64 brute force on every 64th particle;
+             parity over 8 steps against the windowed engine by pid
+             (``FRACTURE_PARITY``); ``fracture3d``: the same on
+             main_path3d's 96³ problem, 2 + 4 steps, parity over 4
+  fracture_implicit
+             eigenerosion on the implicit 256² problem with the band (no
+             pull) at dt = 0.25·h/c, fused, 1 + 2 steps: converged, the
+             staggered update fired, launches held to the formula of
+             formulations/implicit.py; parity at 128² over 2 steps against
+             the windowed engine with equal Newton counts
+  shapefuns  uGIMP and aLME on the explicit step at 512² on the windowed
+             engine (their driver route), 2 + 8 steps: lost 0, finite, no
+             kernel launched, aLME's β pulled back; parity at 128² over 4
+             steps against the scatter engine, by pid
+  scatter    the scatter engine (``transfer='scatter'``) at 128² against the
+             windowed engine by pid (rel_dx < 1e-3, rel_dv < 1e-2, equal
+             Newton counts): the explicit, implicit, u-pw explicit, u-pw
+             implicit (1 step), Forward-Euler and Generalized-α steps, 2
+             steps each; and a traction deck through ``run_simulation``
+             with the particles stored shuffled
   probes     the lane-roll probes: a roll sum checked exactly against
              torch.roll, and timed beside its multiply-add twin at 4 shapes
   large      (if time allows) the fused path alone at the bigger size: 3D
@@ -156,8 +193,8 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
 
 The line ``{"kernels": [...]}`` lists every kernel with its launches on
 its path (counts set to 0 just before the path's timed run and read just
-after), error against its plain version, times and bound; the line after it
-is the card's name and power limit; the last line is
+after), error against its plain version, times and bound; the line before
+it is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -783,9 +820,10 @@ def _slot_bytes(p, box, n_nodes):
     return 4 * n_active, 4 * (box.n_slots - n_active), 4 * box.n_slots, 4 * n_nodes
 
 
-def _roofline_rows(grid, p, cfg, counts, margin, rows):
+def _roofline_rows(grid, p, cfg, counts, margin, rows, path_tag=""):
     """The four calls of a step at ``margin``, appended to ``rows``;
-    ``counts`` are the main path's launches, or None off the path."""
+    ``counts`` are the main path's launches (or, with ``path_tag``, those of
+    the path it names), or None off the path."""
     from nlpartsol_tpu_torch.ops import fused_transfer as ft
 
     d = grid.dim
@@ -809,7 +847,7 @@ def _roofline_rows(grid, p, cfg, counts, margin, rows):
     # queue the next launch, so the events bracket device time only
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=p.x.device)
     scatter, gather = f"lme_scatter{d}d", f"lme_gather{d}d"
-    tag = "" if counts is not None else f"@margin{margin}"
+    tag = path_tag if counts is not None else f"@margin{margin}"
     off_path = {}
     if counts is None:
         off_path = dict(path=f"none: the {d}D main path runs margin 0 (k = 1); "
@@ -884,11 +922,11 @@ IMPLICIT = {
 }
 
 
-def build_implicit(dim, device):
+def build_implicit(dim, device, n_side=None):
     from nlpartsol_tpu_torch.formulations.implicit import ImplicitConfig
 
     spec = IMPLICIT[dim]
-    grid, p, mats, cfg_e, h = build_problem(dim, spec["n_side"], device)
+    grid, p, mats, cfg_e, h = build_problem(dim, n_side or spec["n_side"], device)
     cfg = ImplicitConfig(
         dt=2.0 * h / np.sqrt(1e7 / 1000.0), lme_params=cfg_e.lme_params, kinds=cfg_e.kinds,
         active_box=cfg_e.active_box, cg_maxiter=60, newton_maxiter=10, forcing="ew",
@@ -2772,7 +2810,7 @@ def write_deck(directory, n_cells, h, body_cells, body_origin, scheme="NPC-FS", 
     text = _DECK_TEXT.format(
         scheme=scheme, cfl=cfl, cel=cel, steps=steps, solver_props=solver_props,
         boundaries=boundaries,
-        shapefun=shapefun, shape_props="    gamma=3.0\n" if shapefun == "LME" else "",
+        shapefun=shapefun, shape_props="    gamma=3.0\n" if shapefun in ("LME", "aLME") else "",
         materials=materials, analysis=analysis, gpx=2 ** dim, extra=extra, out_every=out_every)
     path = os.path.join(directory, "sim.nlp")
     with open(path, "w") as fh:
@@ -2901,8 +2939,11 @@ _SOIL_WATER = ("Define-Material (idx=0, Model=Neo-Hookean-Wriggers) {\n"
                "Define-Mixture (idx=0) {\n    Soil-Idx=0\n    Fluid-Idx=1\n"
                "    Permeability-Skeleton=1e-5\n    Reference-Volume-Fraction-Soil=0.6\n"
                "    Reference-Volume-Fraction-Fluid=0.4\n}\n")
+_FRACTURE_DECK_MATERIAL = ("Define-Material (idx=0, Model=Neo-Hookean-Wriggers) {\n"
+                           "    E=1e7\n    nu=0.3\n    rho=1000\n    Ceps=1.5\n    Gf=1e-3\n}\n")
 DECK_ROUTES = {
-    # name: (deck options, CLI formulation flag, the engine of the JAX rule)
+    # name: (deck options, CLI formulation flag, the engine of the JAX rule);
+    # the option ``transfer`` goes to the CLI's --transfer (default auto)
     "npcfs_lme_2d": (dict(), "--FORMULATION-U", "fused"),
     "npcfs_lme_3d": (dict(dim=3), "--FORMULATION-U", "fused"),
     "npcfs_fem_2d": (dict(shapefun="FEM"), "--FORMULATION-U", "windowed"),
@@ -2921,6 +2962,21 @@ DECK_ROUTES = {
                         solver_props="    TOL-Newmark-beta=1e-3\n"),
                    "--FORMULATION-Up", "fused"),
     "dem": (dict(scheme="Discrete-Energy-Momentum", cfl=1.0), "--FORMULATION-U", "fused"),
+    # nonlocal fracture from the deck's Fracture-Modulus key: explicit on the
+    # kernels (a re-bin every step) and on the windowed engine, Newmark-β
+    # (staggered); a tiny Gf erodes what tension there is under gravity
+    "fracture_fused": (dict(materials=_FRACTURE_DECK_MATERIAL,
+                            solver_props="    Fracture-Modulus=Eigenerosion\n"),
+                       "--FORMULATION-U", "fused"),
+    "fracture_windowed": (dict(materials=_FRACTURE_DECK_MATERIAL,
+                               solver_props="    Fracture-Modulus=Eigenerosion\n",
+                               transfer="windowed"), "--FORMULATION-U", "windowed"),
+    "fracture_newmark": (dict(scheme="Newmark-beta", cfl=1.0, materials=_FRACTURE_DECK_MATERIAL,
+                              solver_props="    Fracture-Modulus=Eigenerosion\n"),
+                         "--FORMULATION-U", "fused"),
+    "ugimp": (dict(shapefun="uGIMP"), "--FORMULATION-U", "windowed"),
+    # aLME: the deck's ALMEParams, β started from β₀ and pulled back
+    "alme": (dict(shapefun="aLME"), "--FORMULATION-U", "windowed"),
 }
 DECK_ROUTE_STEPS = 3
 GOLDEN_DECKS = ("dem_bar", "dem_svk_bar", "dem_bar3d")
@@ -2953,24 +3009,32 @@ def phase_decks(device):
     from nlpartsol_tpu_torch.io.builder import build_simulation
     from nlpartsol_tpu_torch.io.checkpoint import load_checkpoint
     from nlpartsol_tpu_torch.ops import fused_transfer as ft
+    from nlpartsol_tpu_torch.shapefun import alme
 
     cwd = os.getcwd()
     rows = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, (opts, flag, engine) in DECK_ROUTES.items():
+            opts = dict(opts)
+            transfer = opts.pop("transfer", "auto")
             path = _route_deck(os.path.join(tmp, name), **opts)
             setup = build_simulation(path, device=device)
             setup.formulation = {"--FORMULATION-U": "u", "--FORMULATION-Up": "up",
                                  "--FORMULATION-Upw": "upw"}[flag]
-            picked = make_step_config(setup, transfer="auto").transfer
+            cfg = make_step_config(setup, transfer=transfer)
+            picked = cfg.transfer
             if picked != engine:
                 raise PhaseError(f"decks {name}: engine {picked}, the JAX rule's {engine}")
+            damage = getattr(cfg, "damage", None)
+            if (damage is not None) != name.startswith("fracture") or (
+                    damage is not None and getattr(cfg, "rebin_every", 1) != 1):
+                raise PhaseError(f"decks {name}: fracture driver {damage}, {cfg}")
             os.chdir(os.path.dirname(path))
             try:
                 ft.reset_launch_counts()
                 t0 = time.perf_counter()
                 rc = cli.main([flag, "-f", "sim.nlp", "--platform", device, "--no-output",
-                               "--backup-every", str(DECK_ROUTE_STEPS)])
+                               "--backup-every", str(DECK_ROUTE_STEPS), "--transfer", transfer])
                 torch.cuda.synchronize()
                 seconds = time.perf_counter() - t0
                 launches = sum(ft.launch_counts.values())
@@ -2979,12 +3043,23 @@ def phase_decks(device):
                 os.chdir(cwd)
             act = p.active
             finite = all(bool(torch.isfinite(getattr(p, f)[act]).all())
-                         for f in ("x", "v", "a", "F", "stress", "J", "pw"))
+                         for f in ("x", "v", "a", "F", "stress", "J", "pw", "damage"))
             lost = setup.particles.count - int(act.sum())
             ok = rc == 0 and step == DECK_ROUTE_STEPS and finite and lost == 0 and \
                 (launches > 0) == (engine == "fused")
             rows[name] = dict(engine=picked, launches=launches, seconds=seconds,
                               particles=setup.particles.count, finite=finite, lost=lost, ok=ok)
+            if damage is not None:
+                rows[name].update(damage=damage, eroded=int((p.damage[act] >= 1).sum()))
+            if setup.shapefun == "alme":
+                beta = p.lme_beta[act]
+                b0 = torch.as_tensor(alme.beta0(cfg.alme_params, setup.grid.spacing, p.dim),
+                                     device=beta.device)
+                moved = float((beta - b0).abs().max() / b0.abs().max())
+                rows[name].update(beta_finite=bool(torch.isfinite(beta).all()),
+                                  beta_moved=moved)
+                ok = ok and rows[name]["beta_finite"] and moved > 0
+                rows[name]["ok"] = ok
             if not ok:
                 raise PhaseError(f"decks {name}: exit code {rc}, step {step}, {rows[name]}")
     worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
@@ -3001,13 +3076,635 @@ def phase_decks(device):
         golden_dtype="float64", golden_position_limit=1e-8, golden_s=golden_s, ok=True)
 
 
+# ---------------------------------------------------------------------------
+# nonlocal fracture, uGIMP and aLME, and the scatter engine on every step
+# ---------------------------------------------------------------------------
+
+# The fracture problem: the main path's (2D bench.py 512², 3D bench3d.py
+# 96³) with a central band of FRACTURE_BAND["cells"] cells on either side of
+# x = 0.5 pre-stretched to F_xx = 1.3 (tests/test_fracture.py:166) and the
+# two halves pulled apart (x velocity ±pull by the side of x = 0.5), so the
+# band's strain grows after the trigger; Neo-Hookean E 1e7, ν 0.3, ρ 1000,
+# Ceps 1.5 (reach 2), a re-bin every step (the driver's rule under
+# fracture).  Gf, ft, heps and wcrit from the CPU rehearsal
+# (tests/torch_fracture_probe.py rehearse): the band erodes or triggers and
+# softens, the far field stays intact.
+FRACTURE = {2: dict(n_side=512, warm=4, steps=16, parity_steps=8),
+            3: dict(n_side=96, warm=2, steps=4, parity_steps=4)}
+FRACTURE_BAND = dict(cells=8, stretch=1.3, pull=5.0, margin=4)
+FRACTURE_MATERIAL = dict(Ceps=1.5, Gf=600.0, ft=2e6, heps=1.0, wcrit=1e-3)
+# the eroded (eigenerosion) or triggered (eigensoftening: strain_f > 0)
+# share of the band's particles; and the far field: beyond 2·Ceps·h of the
+# band, no particle damaged or triggered
+FRACTURE_BAND_SHARE = (0.5, 1.0)
+# fused against windowed on the card, by pid: x and v at bench.py's gate;
+# the threshold decisions as counts of particles — eigenerosion's damage,
+# eigensoftening's trigger (strain_f > 0) and its damage beyond
+# SOFT_DAMAGE_TOL (the cohesive slope heps/wcrit = 1000 turns a float32
+# difference of 1e-5 in the strain into 1e-2 of damage); strain_f over the
+# particles both engines triggered, as a gap over its largest value.  Set
+# from the readings: the JAX package's own windowed-vs-pallas spread on this
+# problem at 128², 8 steps (tests/torch_fracture_probe.py jax-engines 2 128)
+# is 0 differing decisions and a strain_f gap of 5.8e-7, the card's 0 and
+# 7.3e-7 on every fracture phase; the limits are a few particles and about
+# 14x the largest gap
+FRACTURE_PARITY = dict(dx=1e-3, dv=1e-2, decisions=4, strain_f=1e-5)
+SOFT_DAMAGE_TOL = 1e-2
+BEPS_SAMPLE = 64  # the Beps check's float64 brute force on every 64th particle
+BEPS_AMBIGUOUS = 1e-5  # pairs with |r² − R²| within this share of R² may go either way
+# the 2D lattice puts neighbour pairs at exactly R = 1.5h, so the check runs
+# on the state moved by a seeded jitter of up to BEPS_JITTER·h per axis, each
+# particle kept in its cell; at most BEPS_AMBIGUOUS_SHARE of the sampled rows
+# may then hold an ambiguous pair
+BEPS_JITTER = 1e-2
+BEPS_AMBIGUOUS_SHARE = 0.05
+FRACTURE_IMPLICIT = dict(n_side=256, warm=1, steps=2, parity_steps=2, parity_n_side=128, cfl=0.25)
+
+
+def build_fracture(dim, n_side, device, damage):
+    """The main path's problem with the stretched band, the fracture
+    material and the driver ``damage`` at a re-bin every step."""
+    from nlpartsol_tpu_torch.models import fracture
+
+    grid, p, _, cfg, h = build_problem(dim, n_side, device)
+    # the box FRACTURE_BAND["margin"] cells wider than the particles: the
+    # softening band recoils at up to ~0.15 cell a step
+    m = FRACTURE_BAND["margin"] - 2
+    box = cfg.active_box
+    box = box.replace(offset=tuple(o - m for o in box.offset),
+                      cdims=tuple(c + 2 * m for c in box.cdims))
+    cfg = cfg.replace(rebin_every=1, damage=damage, active_box=box,
+                      beps_reach=fracture.beps_reach(FRACTURE_MATERIAL["Ceps"]))
+    return grid, _stretch_band(p, h, pull=True), _fracture_table(device), cfg, h
+
+
+def _fracture_table(device):
+    from nlpartsol_tpu_torch.models import materials as M
+
+    return M.material_table([M.material(kind="Neo-Hookean-Wriggers", E=1e7, nu=0.3, rho0=1000.0,
+                                        **FRACTURE_MATERIAL)], device=device)
+
+
+def _stretch_band(p, h, pull):
+    from nlpartsol_tpu_torch.ops import tensor as tn
+
+    side = p.x[:, 0] - 0.5
+    band = side.abs() < FRACTURE_BAND["cells"] * h
+    F = p.F.clone()
+    F[:, 0, 0] = torch.where(band, torch.full_like(side, FRACTURE_BAND["stretch"]),
+                             torch.ones_like(side))
+    v = p.v.clone()
+    if pull:
+        # the halves move apart at ±pull, the band between them stretches
+        # at the uniform rate pull/(cells·h)
+        w = FRACTURE_BAND["cells"] * h
+        v[:, 0] = v[:, 0] + FRACTURE_BAND["pull"] * torch.clamp(side / w, -1.0, 1.0)
+    return p.replace(F=F, J=tn.det(F), v=v)
+
+
+def _fracture_shares(p, h, damage):
+    """The band's eroded (eigenerosion) or triggered (eigensoftening) share,
+    and the far field's count of particles touched, both by the particles'
+    reference positions x − dis."""
+    act = p.active
+    side = (p.x[act, 0] - p.dis[act, 0] - 0.5).abs()  # in the reference configuration
+    hit = (p.damage[act] > 0) if damage == "eigenerosion" else (p.strain_f[act] > 0)
+    band = side < FRACTURE_BAND["cells"] * h
+    far = side > (FRACTURE_BAND["cells"] + 2 * FRACTURE_MATERIAL["Ceps"]) * h
+    return dict(band_particles=int(band.sum()), band_share=float(hit[band].float().mean()),
+                far_particles=int(far.sum()),
+                far_touched=int((hit | (p.damage[act] > 0))[far].sum()),
+                damaged=int((p.damage[act] > 0).sum()), eroded=int((p.damage[act] >= 1).sum()),
+                triggered=int((p.strain_f[act] > 0).sum()),
+                damage_max=float(p.damage[act].max()))
+
+
+def _beps_inputs(p, mats, grid):
+    """The eigenerosion drivers' two neighbour sums on a state: V and V·W of
+    the active intact particles, radius Ceps·h."""
+    zero = torch.zeros((), dtype=p.x.dtype, device=p.x.device)
+    act = p.active
+    V = p.vol0 * p.J
+    vals = {"V": torch.where(act, V, zero), "VW": torch.where(act & (p.damage < 1), V * p.W, zero)}
+    radius = mats.Ceps[p.mat_id.long()] * grid.spacing
+    return vals, radius
+
+
+def _beps_costs(p, grid, mats, cfg, label):
+    """ms of one call of the Beps sums at the step's shapes (CUDA events, 5
+    calls) and its kernels (torch.profiler, one call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nlpartsol_tpu_torch.models import fracture
+
+    vals, radius = _beps_inputs(p, mats, grid)
+
+    def call():
+        return fracture._neighbor_pair_sums(grid, cfg.active_box, p.x, p.active, vals, radius,
+                                            reach=cfg.beps_reach)
+
+    call()
+    ms = cuda_ms(call, 5)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    prof_out = _profiled_step(prof, ms, label)
+    return dict(beps_ms_per_call=ms, beps_kernels_per_call=prof_out["device_kernels"],
+                beps_device_ms_per_call=prof_out["device_ms"],
+                offsets=(2 * cfg.beps_reach + 1) ** grid.dim)
+
+
+def beps_bruteforce(x, vals, radius, h, sample, reach):
+    """Σ_q val_q over |x_p − x_q| ≤ R_p for the rows ``sample`` of the
+    active particles (float64 numpy, cell buckets of side h over the
+    positions, independent of the slot layout): the sums counting only the
+    pairs surely inside (r² ≤ R²(1 − BEPS_AMBIGUOUS)) and those counting the
+    ambiguous pairs too (r² ≤ R²(1 + BEPS_AMBIGUOUS))."""
+    import itertools
+
+    n, d = x.shape
+    cell = np.floor(x / h).astype(np.int64)
+    cell -= cell.min(0)
+    dims = cell.max(0) + 1
+    key = np.ravel_multi_index(cell.T, dims)
+    order = np.argsort(key, kind="stable")
+    ks = key[order]
+    xs, r2 = x[sample], radius[sample] ** 2
+    lo = np.zeros((len(sample), vals.shape[1]))
+    hi = np.zeros_like(lo)
+    for off in itertools.product(range(-reach - 1, reach + 2), repeat=d):
+        c = cell[sample] + np.asarray(off)
+        inside = np.all((c >= 0) & (c < dims), axis=1)
+        kk = np.ravel_multi_index(np.clip(c, 0, dims - 1).T, dims)
+        a, b = np.searchsorted(ks, kk, "left"), np.searchsorted(ks, kk, "right")
+        for j in range(int((b - a).max(initial=0))):
+            idx = a + j
+            ok = inside & (idx < b)
+            q = order[np.minimum(idx, n - 1)]
+            d2 = np.sum((xs - x[q]) ** 2, axis=1)
+            lo += np.where((ok & (d2 <= r2 * (1 - BEPS_AMBIGUOUS)))[:, None], vals[q], 0.0)
+            hi += np.where((ok & (d2 <= r2 * (1 + BEPS_AMBIGUOUS)))[:, None], vals[q], 0.0)
+    return lo, hi
+
+
+def _beps_check(p, grid, mats, cfg, label):
+    """The card's float32 Beps sums on the jittered state against the
+    float64 brute force on the CPU, on every BEPS_SAMPLE-th active particle:
+    each sum between the brute force without and with the ambiguous pairs,
+    within 1e-5 relative (float32 sums of tens of terms), and few rows
+    ambiguous."""
+    from nlpartsol_tpu_torch.models import fracture
+
+    h = grid.spacing
+    origin = torch.as_tensor(grid.origin, dtype=p.x.dtype, device=p.x.device)
+    cell = torch.floor((p.x - origin) / h)
+    gen = torch.Generator(device=p.x.device).manual_seed(0)
+    shake = (2 * torch.rand(p.x.shape, generator=gen, device=p.x.device, dtype=p.x.dtype) - 1)
+    x = torch.minimum(torch.maximum(p.x + BEPS_JITTER * h * shake, origin + (cell + 1e-3) * h),
+                      origin + (cell + 1 - 1e-3) * h)
+    p = p.replace(x=torch.where(p.active[:, None], x, p.x))
+    vals, radius = _beps_inputs(p, mats, grid)
+    got = fracture._neighbor_pair_sums(grid, cfg.active_box, p.x, p.active, vals, radius,
+                                       reach=cfg.beps_reach)
+    act = p.active
+    names = list(vals)
+    card = torch.stack([got[k][act] for k in names], -1).double().cpu().numpy()
+    x = p.x[act].double().cpu().numpy()
+    v = torch.stack([vals[k][act] for k in names], -1).double().cpu().numpy()
+    r = radius[act].double().cpu().numpy()
+    sample = np.arange(0, len(x), BEPS_SAMPLE)
+    t0 = time.perf_counter()
+    lo, hi = beps_bruteforce(x, v, r, grid.spacing, sample, cfg.beps_reach)
+    brute_s = time.perf_counter() - t0
+    c = card[sample]
+    scale = np.abs(hi).max(0)
+    tol = 1e-5 * np.maximum(np.abs(hi), 1e-6 * scale)
+    below, above = lo - tol - c, c - hi - tol
+    worst = float(np.max(np.maximum(below, above) / np.maximum(np.abs(hi), 1e-30)))
+    ambiguous = int(np.any(lo != hi, axis=1).sum())
+    ok = bool(np.all(below <= 0) and np.all(above <= 0)
+              and ambiguous <= BEPS_AMBIGUOUS_SHARE * len(sample))
+    out = dict(sampled=len(sample), values=names, jitter=BEPS_JITTER, ambiguous_rows=ambiguous,
+               worst_rel_outside=worst, mean_neighbors=float(np.mean(lo[:, 0] / np.maximum(
+                   v[sample, 0], 1e-30))), brute_force_s=brute_s, ok=ok)
+    if not ok:
+        raise PhaseError(f"{label}: Beps sums outside the float64 brute force {out}")
+    return out
+
+
+def _fracture_parity(p0, grid, mats, cfg, h, steps, label):
+    """``steps`` from the same state on the fused kernels and the windowed
+    engine on the card, by pid: x, v, and the damage fields' gaps."""
+    from nlpartsol_tpu_torch.formulations.explicit import run
+
+    pf, df = run(p0, grid, mats, cfg, steps)
+    _check_state(label + ":fused", pf, df)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pw, dw = run(p0, grid, mats, cfg.replace(transfer="windowed"), steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _check_state(label + ":windowed", pw, dw)
+    return _damage_parity(pf, pw, h, label, cfg.damage, steps,
+                          windowed_ms_per_step=1e3 * seconds / steps)
+
+
+def _damage_parity(pf, pw, h, label, damage, steps, **extra):
+    lim = FRACTURE_PARITY
+    rel_dx, rel_dv, (df_, dw_), (sf, sw) = _parity(pf, pw, h, label,
+                                                   ("x", "v", "damage", "strain_f"))
+    both = (sf > 0) & (sw > 0)
+    s_scale = max(float(sw.abs().max()), 1e-30)
+    out = dict(steps=steps, rel_dx=rel_dx, rel_dv=rel_dv,
+               damage_differs=int((df_ != dw_).sum()),
+               damage_gap=float((df_ - dw_).abs().max()) / max(float(dw_.abs().max()), 1e-30),
+               trigger_differs=int(((sf > 0) != (sw > 0)).sum()),
+               soft_damage_differs=int(((df_ - dw_).abs() > SOFT_DAMAGE_TOL).sum()),
+               strain_f_gap=float(torch.where(both, (sf - sw).abs(), 0 * sf).max()) / s_scale,
+               damaged_fused=int((df_ > 0).sum()), damaged_windowed=int((dw_ > 0).sum()),
+               triggered_fused=int((sf > 0).sum()), triggered_windowed=int((sw > 0).sum()),
+               **extra)
+    ok = rel_dx < lim["dx"] and rel_dv < lim["dv"]
+    if damage == "eigenerosion":
+        ok = ok and out["damage_differs"] <= lim["decisions"]
+    else:
+        ok = (ok and out["trigger_differs"] <= lim["decisions"]
+              and out["soft_damage_differs"] <= lim["decisions"]
+              and out["strain_f_gap"] <= lim["strain_f"])
+    out["ok"] = ok
+    if not ok:
+        raise PhaseError(f"{label}: parity {out}, limits {lim}")
+    return out
+
+
+def _check_fracture_state(label, p, shares, damage):
+    act = p.active
+    for name in ("stress", "damage", "strain_f", "J"):
+        if not bool(torch.isfinite(getattr(p, name)[act]).all()):
+            raise PhaseError(f"{label}: non-finite {name}")
+    lo, hi = FRACTURE_BAND_SHARE
+    if not (lo <= shares["band_share"] <= hi and shares["band_share"] > 0):
+        raise PhaseError(f"{label}: {damage} touched {shares['band_share']} of the band, "
+                         f"outside {FRACTURE_BAND_SHARE}: {shares}")
+    if shares["far_particles"] == 0 or shares["far_touched"] != 0:
+        raise PhaseError(f"{label}: far field touched: {shares}")
+
+
+def phase_fracture(device, dim, roofline=False):
+    """Eigenerosion, then eigensoftening, on the main path's problem with the
+    stretched band, fused at a re-bin every step: warm-up, timed steps with
+    the launch counts from 0 (2 scatters + 2 gathers a step), the band's
+    share and the far field, the Beps sums' cost and their float64 check,
+    the re-bin's share, and parity against the windowed engine.  With
+    ``roofline``, in 2D, the four calls at margin 0 on the eroding state
+    (rows ``…@fracture``: the 2D main path runs margin 1; in 3D the main
+    path's rows are these calls).  Returns the rows."""
+    from nlpartsol_tpu_torch.formulations.explicit import run, to_slot_layout
+    from nlpartsol_tpu_torch.ops import windowed
+
+    spec = FRACTURE[dim]
+    label = "fracture" + _suffix(dim)
+    steps = spec["steps"]
+    rows, kernel_rows = {}, []
+    for damage in ("eigenerosion", "eigensoftening"):
+        grid, p, mats, cfg, h = build_fracture(dim, spec["n_side"], device, damage)
+        p0 = to_slot_layout(p, grid, cfg.active_box)
+        p1, _ = run(p0, grid, mats, cfg, spec["warm"])
+        p2, diag, seconds, counts = _timed_run(p1, grid, mats, cfg, steps)
+        _check_state(f"{label}:{damage}", p2, diag)
+        want = {f"lme_scatter{dim}d:solve": steps, f"lme_scatter{dim}d:G": steps,
+                f"lme_gather{dim}d:N+grad": steps, f"lme_gather{dim}d:N": steps}
+        if counts != want:
+            raise PhaseError(f"{label}:{damage}: launch counts {counts}, expected {want}")
+        shares = _fracture_shares(p2, h, damage)
+        _check_fracture_state(f"{label}:{damage}", p2, shares, damage)
+        if roofline and dim == 2 and damage == "eigenerosion":
+            _roofline_rows(grid, p2, cfg, counts, 0, kernel_rows, path_tag="@fracture")
+        ms = 1e3 * seconds / steps
+        rebin_ms = cuda_ms(lambda: windowed.local_rebin(p2, grid, cfg.active_box), 5)
+        rows[damage] = dict(
+            ms_per_step=ms, lost=0, launches=counts, **shares,
+            **_beps_costs(p2, grid, mats, cfg, label),
+            rebin_ms=rebin_ms, rebin_share=rebin_ms / ms,
+            beps_check=_beps_check(p2, grid, mats, cfg, f"{label}:{damage}"),
+            parity=_fracture_parity(p0, grid, mats, cfg, h, spec["parity_steps"],
+                                    f"{label}_parity:{damage}"))
+        del p0, p1, p2
+        torch.cuda.empty_cache()
+    say(phase=label, grid="x".join(map(str, grid.dims)), particles=p.count,
+        slots=cfg.active_box.n_slots, band=FRACTURE_BAND, material=FRACTURE_MATERIAL,
+        beps_reach=cfg.beps_reach, warmup_steps=spec["warm"], steps=steps,
+        band_share_range=FRACTURE_BAND_SHARE, parity_limits=FRACTURE_PARITY, drivers=rows,
+        ok=True)
+    return kernel_rows
+
+
+def build_fracture_implicit(n_side, device):
+    """The implicit problem with the stretched band (no pull) and
+    eigenerosion, at dt = FRACTURE_IMPLICIT["cfl"]·h/c: the band holds its
+    full stress through the first step (the update is staggered), and at
+    the implicit problem's 2h/c its recoil would carry the band's edges
+    past the one cell a local re-bin takes in a step."""
+    from nlpartsol_tpu_torch.models import fracture
+
+    grid, p, _, cfg, h = build_implicit(2, device, n_side)
+    cfg = cfg.replace(dt=FRACTURE_IMPLICIT["cfl"] * h / np.sqrt(1e7 / 1000.0),
+                      damage="eigenerosion",
+                      beps_reach=fracture.beps_reach(FRACTURE_MATERIAL["Ceps"]))
+    return grid, _stretch_band(p, h, pull=False), _fracture_table(device), cfg, h
+
+
+def phase_fracture_implicit(device):
+    """Eigenerosion on the implicit 256² problem with the stretched band (no
+    pull), fused: the staggered update at each converged state; launches
+    held to the implicit step's formula (fracture adds none); parity at
+    128² against the windowed engine with equal Newton counts."""
+    from nlpartsol_tpu_torch.formulations.explicit import to_slot_layout
+    from nlpartsol_tpu_torch.models import fracture
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+
+    spec = FRACTURE_IMPLICIT
+    label = "fracture_implicit"
+
+    def build(n_side):
+        grid, p, mats, cfg, h = build_fracture_implicit(n_side, device)
+        return grid, to_slot_layout(p, grid, cfg.active_box), mats, cfg, h
+
+    grid, p0, mats, cfg, h = build(spec["n_side"])
+    n_particles = int(p0.active.sum())
+    p1, hist0 = _implicit_steps(label, p0, grid, mats, cfg, spec["warm"])
+    fired = _fracture_shares(p1, h, "eigenerosion")
+    if fired["eroded"] == 0:
+        raise PhaseError(f"{label}: the staggered update did not fire: {fired}")
+    ft.reset_launch_counts()
+    times = []
+    p2, hist = _implicit_steps(label, p1, grid, mats, cfg, spec["steps"], times)
+    counts = dict(ft.launch_counts)
+    steps = spec["steps"]
+    n_tot, l_tot = sum(x[0] for x in hist), sum(x[1] for x in hist)
+    want = {"lme_scatter2d:solve+gnorm": steps, "lme_gather2d:grad": 3 * steps + 7 * n_tot +
+            2 * l_tot, "lme_scatter2d:G": steps + 7 * n_tot + 2 * l_tot, "lme_gather2d:N": steps}
+    if counts != want:
+        raise PhaseError(f"{label}: launch counts {counts}, expected {want}")
+    shares = _fracture_shares(p2, h, "eigenerosion")
+    _check_fracture_state(label, p2, shares, "eigenerosion")
+    del p0, p1, p2
+    torch.cuda.empty_cache()
+    # parity at 128²: both engines from the same state, equal Newton counts
+    gq, q0, mq, cq, hq = build(spec["parity_n_side"])
+    qf, hf = _implicit_steps(label + ":fused", q0, gq, mq, cq, spec["parity_steps"])
+    qw, hw = _implicit_steps(label + ":windowed", q0, gq, mq, cq.replace(transfer="windowed"),
+                             spec["parity_steps"])
+    parity = _damage_parity(qf, qw, hq, label + "_parity", "eigenerosion",
+                            spec["parity_steps"], newton_fused=[x[0] for x in hf],
+                            newton_windowed=[x[0] for x in hw])
+    if parity["newton_fused"] != parity["newton_windowed"]:
+        raise PhaseError(f"{label}: Newton counts differ {parity}")
+    say(phase=label, grid="x".join(map(str, grid.dims)), particles=n_particles,
+        slots=cfg.active_box.n_slots, dt=cfg.dt,
+        warmup_steps=spec["warm"], steps=steps, ms_per_step=float(np.mean(times)),
+        step_ms=times, newton_iters=[x[0] for x in hist], cg_iters=[x[1] for x in hist],
+        warmup_newton=[x[0] for x in hist0], eroded_after_first_step=fired["eroded"],
+        converged=True, lost=0, launches=counts, launches_expected=want, **shares,
+        parity_n_side=spec["parity_n_side"], parity=parity, ok=True)
+
+
+# uGIMP and aLME on the explicit step: the main path's problem on the
+# windowed engine (their driver route: the kernels compute LME only), a
+# re-bin every step; aLME at the JAX test's parameters
+# (tests/test_gimp_alme.py:93), β from β₀; parity at 128² against the
+# scatter engine on the card
+SHAPEFUNS = dict(n_side=512, warm=2, steps=8, parity_n_side=128, parity_steps=4)
+ALME_PARAMS = dict(gamma=3.0, max_stretch=1.2)
+
+
+def build_shapefun(n_side, device, shapefun, transfer="windowed"):
+    from nlpartsol_tpu_torch.shapefun import alme
+
+    grid, p, mats, cfg, h = build_problem(2, n_side, device)
+    kw = dict(transfer=transfer, shapefun=shapefun, rebin_every=1)
+    if shapefun == "alme":
+        kw["alme_params"] = alme.ALMEParams(**ALME_PARAMS)
+        p = p.replace(lme_beta=alme.init_lme_beta(p.count, kw["alme_params"], h, 2,
+                                                  device=device))
+    return grid, p, mats, cfg.replace(**kw), h
+
+
+def phase_shapefuns(device):
+    """uGIMP and aLME at the main path's width on the windowed engine:
+    warm-up, timed steps (no kernel launch), lost 0, finite fields, aLME's β
+    pulled back; parity at 128² against the scatter engine, by pid."""
+    from nlpartsol_tpu_torch.formulations.explicit import run, to_slot_layout
+    from nlpartsol_tpu_torch.shapefun import alme, gimp
+
+    spec = SHAPEFUNS
+    rows = {}
+    for shapefun in ("gimp", "alme"):
+        label = f"shapefuns:{shapefun}"
+        grid, p, mats, cfg, h = build_shapefun(spec["n_side"], device, shapefun)
+        if shapefun == "gimp":
+            gimp.check_halfwidth(gimp.voxel_halfwidth(p.vol0, 2), h)
+        p0 = to_slot_layout(p, grid, cfg.active_box)
+        p1, _ = run(p0, grid, mats, cfg, spec["warm"])
+        torch.cuda.reset_peak_memory_stats()
+        p2, diag, seconds, counts = _timed_run(p1, grid, mats, cfg, spec["steps"])
+        _check_state(label, p2, diag)
+        if any(counts.values()):
+            raise PhaseError(f"{label}: the windowed engine launched kernels {counts}")
+        total_nnz = int(diag["nnz"].long().sum())
+        row = dict(ms_per_step=1e3 * seconds / spec["steps"],
+                   nnz_per_step=total_nnz / spec["steps"], lost=0, finite=True,
+                   offsets=int((gimp.offsets_for(2) if shapefun == "gimp" else
+                                alme.offsets_for(2, cfg.alme_params)).shape[0]),
+                   peak_device_bytes=torch.cuda.max_memory_allocated())
+        if shapefun == "alme":
+            beta = p2.lme_beta[p2.active]
+            b0 = torch.as_tensor(alme.beta0(cfg.alme_params, h, 2), device=device)
+            moved = float((beta - b0).abs().max() / b0.abs().max())
+            if not (bool(torch.isfinite(beta).all()) and moved > 0):
+                raise PhaseError(f"{label}: β not pulled back ({moved})")
+            row["beta_pulled_back_max_rel"] = moved
+        del p0, p1, p2
+        torch.cuda.empty_cache()
+        g, q, m, c, hq = build_shapefun(spec["parity_n_side"], device, shapefun)
+        qw, dw = run(q, g, m, c, spec["parity_steps"])
+        qs, ds = run(q, g, m, c.replace(transfer="scatter"), spec["parity_steps"])
+        _check_state(label + ":windowed", qw, dw)
+        _check_state(label + ":scatter", qs, ds)
+        rel_dx, rel_dv, (bs, bw) = _parity(qs, qw, hq, label, ("x", "v", "lme_beta"))
+        beta_gap = (float((bs - bw).abs().max() / bw.abs().max()) if shapefun == "alme"
+                    else 0.0)
+        ok = rel_dx < 1e-3 and rel_dv < 1e-2 and beta_gap < 1e-3
+        row["parity"] = dict(n_side=spec["parity_n_side"], steps=spec["parity_steps"],
+                             rel_dx=rel_dx, rel_dv=rel_dv, beta_gap=beta_gap,
+                             nnz_windowed=int(dw["nnz"][-1]), nnz_scatter=int(ds["nnz"][-1]),
+                             ok=ok)
+        if not ok:
+            raise PhaseError(f"{label}: parity against the scatter engine {row['parity']}")
+        rows[shapefun] = row
+    say(phase="shapefuns", grid=f"{spec['n_side']}x{spec['n_side']}", particles=p.count,
+        warmup_steps=spec["warm"], steps=spec["steps"], alme_params=ALME_PARAMS,
+        shapefuns=rows, ok=True)
+
+
+# the scatter engine (ops/transfer.py::ScatterEngine, index_add over the
+# particles' own order, no slot layout) on every step it now takes, at 128²
+# against the windowed engine on the card, by pid
+SCATTER = dict(n_side=128, steps=2, upw_implicit_steps=1, traction_steps=8)
+
+
+def _engine_pair(label, h, fn, names=("x", "v"), newton=False):
+    """``fn(transfer)`` → (particles, lost, Newton counts) on the windowed and
+    the scatter engine; rel_dx, rel_dv (and equal Newton counts) by pid."""
+    pw, lost_w, nw = fn("windowed")
+    ps, lost_s, ns = fn("scatter")
+    for eng, pp, lost in (("windowed", pw, lost_w), ("scatter", ps, lost_s)):
+        _check_state(f"{label}:{eng}", pp, dict(lost=torch.as_tensor(lost)))
+    rel_dx, rel_dv = _parity(ps, pw, h, label)[:2]
+    ok = rel_dx < 1e-3 and rel_dv < 1e-2 and (not newton or nw == ns)
+    row = dict(rel_dx=rel_dx, rel_dv=rel_dv, ok=ok)
+    if newton:
+        row.update(newton_windowed=nw, newton_scatter=ns)
+    if not ok:
+        raise PhaseError(f"scatter {label}: {row}")
+    return row
+
+
+def _traction_deck(directory, steps):
+    """A free 8×6-cell body on a 16² background, pulled at its right column
+    of particles by a constant traction (test_io.py's traction case)."""
+    import os
+
+    from nlpartsol_tpu_torch.io.builder import build_simulation
+
+    cells, h = 16, 1.0 / 16
+    neumann = ("Define-Neumann-Boundary (File=load_ids.txt) {\n"
+               "    BcNeumann T.x pull.txt\n}\n")
+    path = write_deck(directory, (cells, cells), h, (8, 6), (4 * h, 4 * h), steps=steps,
+                      extra=neumann)
+    with open(os.path.join(directory, "pull.txt"), "w") as fh:
+        fh.write("CONSTANT_CURVE SCALE#1e5\n")
+    with open(os.path.join(directory, "load_ids.txt"), "w") as fh:
+        fh.write("0\n")
+    x0 = build_simulation(path, device="cpu").particles.x.numpy()
+    right = np.where(x0[:, 0] > x0[:, 0].max() - 0.25 * h)[0]
+    with open(os.path.join(directory, "load_ids.txt"), "w") as fh:
+        fh.write("\n".join(map(str, right)) + "\n")
+    return path, x0, h
+
+
+def phase_scatter(device):
+    """Each route the scatter engine opened — the explicit, implicit, u-pw
+    explicit and implicit, Forward-Euler and Generalized-α steps — at 128²
+    against the windowed engine on the card, by pid; and the traction deck
+    through ``run_simulation`` with the particles stored shuffled (the
+    tables follow pid)."""
+    import os
+    import tempfile
+
+    from nlpartsol_tpu_torch.driver import run_simulation
+    from nlpartsol_tpu_torch.formulations import integrators, upw
+    from nlpartsol_tpu_torch.formulations.explicit import run
+    from nlpartsol_tpu_torch.io.builder import build_simulation
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+
+    n, steps = SCATTER["n_side"], SCATTER["steps"]
+    rows = {}
+    t0 = time.perf_counter()
+    ft.reset_launch_counts()
+
+    grid, p, mats, cfg, h = build_problem(2, n, device)
+    cfg = cfg.replace(transfer="windowed", rebin_every=1)
+
+    def explicit(t):
+        q, dg = run(p, grid, mats, cfg.replace(transfer=t), steps)
+        return q, dg["lost"].sum(), None
+
+    rows["explicit"] = _engine_pair("explicit", h, explicit)
+
+    def integrator(scheme):
+        def go(t):
+            c = cfg.replace(transfer=t, scheme=scheme)
+            body = torch.zeros(2, dtype=p.x.dtype, device=device)
+            q, lost = p, 0
+            for _ in range(steps):
+                if scheme == "FE":
+                    q, dg = integrators.forward_euler_step(q, grid, mats, c, body)
+                else:
+                    q, dg = integrators.generalized_alpha_step(q, grid, mats, c, body, c.ga_rb)
+                lost += int(dg["lost"])
+            return q, lost, None
+        return go
+
+    rows["forward_euler"] = _engine_pair("forward_euler", h, integrator("FE"))
+    rows["generalized_alpha"] = _engine_pair("generalized_alpha", h,
+                                             integrator("Generalized-alpha"))
+
+    gi, pi, mi, ci, hi = build_implicit(2, device, n)
+
+    def implicit(t):
+        q, hist = _implicit_steps(f"scatter:implicit:{t}", pi, gi, mi, ci.replace(transfer=t),
+                                  steps)
+        return q, 0, [x[0] for x in hist]
+
+    rows["implicit"] = _engine_pair("implicit", hi, implicit, newton=True)
+
+    for implicit_upw in (False, True):
+        gu, pu, mu, mix, cu, hu = build_upw(device, implicit_upw, n)
+        body = _upw_body(pu)
+
+        def mixture(t):
+            c = cu.replace(transfer=t)
+            if not implicit_upw:
+                q, dg = upw.run(pu, gu, mu, mix, c, steps, body)
+                return q, dg["lost"].sum(), None
+            q, newton = pu, []
+            for _ in range(SCATTER["upw_implicit_steps"]):
+                q, dg = upw.upw_newmark_step(q, gu, mu, mix, c, body)
+                newton.append(int(dg["newton_iters"]))
+            return q, dg["lost"], newton
+
+        name = "upw_implicit" if implicit_upw else "upw_explicit"
+        rows[name] = _engine_pair(name, hu, mixture, newton=implicit_upw)
+    if any(ft.launch_counts.values()):
+        raise PhaseError(f"scatter: kernels launched on the plain engines {ft.launch_counts}")
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        path, x0, hd = _traction_deck(os.path.join(tmp, "traction"), SCATTER["traction_steps"])
+        os.chdir(os.path.dirname(path))
+        try:
+            perm = torch.as_tensor(np.random.default_rng(3).permutation(len(x0)), device=device)
+
+            def deck(t):
+                setup = build_simulation("sim.nlp", device=device)
+                if not setup.neumann:
+                    raise PhaseError("scatter: the traction deck lost its Neumann block")
+                setup.particles = setup.particles.map_tensors(lambda a: a[perm])
+                q, _ = run_simulation(setup, transfer=t, write_outputs=False, progress=False)
+                return q, 0, None
+
+            rows["traction"] = _engine_pair("traction", hd, deck)
+            qs = deck("scatter")[0]
+            stretch = float(qs.x[:, 0].max()) - float(x0[:, 0].max())
+        finally:
+            os.chdir(cwd)
+    if not stretch > 1e-6:
+        raise PhaseError(f"scatter: the traction did not move the body ({stretch})")
+    rows["traction"]["stretch"] = stretch
+    say(phase="scatter", grid=f"{n}x{n}", steps=steps,
+        upw_implicit_steps=SCATTER["upw_implicit_steps"],
+        traction_steps=SCATTER["traction_steps"], routes=rows,
+        seconds=time.perf_counter() - t0, ok=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="kernels,main_path,parity,roofline,implicit,"
                     "implicit_parity,kernels3d,main_path3d,parity3d,roofline3d,implicit3d,"
                     "implicit_parity3d,upw,upw_parity,upw_implicit,upw_implicit_parity,up,"
-                    "up_parity,dem,dem_parity,models_fn,models,models_parity,models3d,deck,decks,probes,"
-                    "large3d,large",
+                    "up_parity,dem,dem_parity,models_fn,models,models_parity,models3d,deck,decks,"
+                    "fracture,fracture3d,fracture_implicit,shapefuns,scatter,probes,large3d,large",
                     help="comma-separated phases to run after device and build")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -3092,6 +3789,19 @@ def main():
         torch.cuda.empty_cache()
     if "decks" in phases:
         phase_decks(device)
+        torch.cuda.empty_cache()
+    for dim in (2, 3):
+        if "fracture" + _suffix(dim) in phases:
+            rows += phase_fracture(device, dim, roofline="roofline" in phases)
+            torch.cuda.empty_cache()
+    if "fracture_implicit" in phases:
+        phase_fracture_implicit(device)
+        torch.cuda.empty_cache()
+    if "shapefuns" in phases:
+        phase_shapefuns(device)
+        torch.cuda.empty_cache()
+    if "scatter" in phases:
+        phase_scatter(device)
         torch.cuda.empty_cache()
     if "probes" in phases:
         rows += phase_probes(device)

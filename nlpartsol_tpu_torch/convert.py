@@ -20,6 +20,7 @@ from .formulations.up import UpConfig
 from .formulations.upw import MixtureTable, UpwConfig, UpwImplicitConfig
 from .models.materials import MaterialTable
 from .ops.windowed import ActiveBox
+from .shapefun.alme import ALMEParams
 from .shapefun.lme import LMEParams
 from .types import Grid, Particles
 
@@ -96,10 +97,11 @@ def grid_from_numpy(
 
 def _config_from_fields(cls, fields: dict, waiting: dict):
     """A port config from the static fields of the JAX package's config
-    (``dataclasses.asdict``-style dict, nested ``lme_params`` and
-    ``active_box`` as dicts or objects with the same attribute names).  The
-    transfer name ``'pallas'`` becomes ``'fused'``; fields the port does not
-    have (``waiting``: name → default) must hold their defaults."""
+    (``dataclasses.asdict``-style dict, nested ``lme_params``,
+    ``alme_params`` and ``active_box`` as dicts or objects with the same
+    attribute names).  The transfer name ``'pallas'`` becomes ``'fused'``;
+    fields the port does not have (``waiting``: name → default) must hold
+    their defaults."""
 
     def sub(sub_cls, v):
         if v is None or isinstance(v, sub_cls):
@@ -109,6 +111,8 @@ def _config_from_fields(cls, fields: dict, waiting: dict):
 
     kw = dict(fields)
     kw["lme_params"] = sub(LMEParams, kw.get("lme_params")) or LMEParams()
+    if "alme_params" in kw:
+        kw["alme_params"] = sub(ALMEParams, kw["alme_params"])
     box = sub(ActiveBox, kw.get("active_box"))
     if box is not None:
         box = box.replace(offset=tuple(box.offset), cdims=tuple(box.cdims))
@@ -128,42 +132,43 @@ def _config_from_fields(cls, fields: dict, waiting: dict):
     return cls(**kw)
 
 
+# the JAX configs' field that waits for ROADMAP.md queue 1, item 15 (the
+# sharded drivers' pre-binned slot layout)
+_WAITING = {"prebinned": False}
+
+
 def config_from_fields(fields: dict) -> ExplicitConfig:
     """ExplicitConfig from the static fields of the JAX package's
     ExplicitConfig (see :func:`_config_from_fields`)."""
-    # options of the reference that the port has not reached yet
-    waiting = {"alme_params": None, "beps_reach": 1, "prebinned": False}
-    return _config_from_fields(ExplicitConfig, fields, waiting)
+    return _config_from_fields(ExplicitConfig, fields, _WAITING)
 
 
 def implicit_config_from_fields(fields: dict) -> ImplicitConfig:
     """ImplicitConfig from the static fields of the JAX package's
     ImplicitConfig (see :func:`_config_from_fields`); its ``'pallas'``
     transfer is the port's ``'fused'``."""
-    waiting = {"alme_params": None, "beps_reach": 1}
-    return _config_from_fields(ImplicitConfig, fields, waiting)
+    return _config_from_fields(ImplicitConfig, fields, {})
 
 
 def upw_config_from_fields(fields: dict) -> UpwConfig:
     """UpwConfig from the static fields of the JAX package's UpwConfig (see
     :func:`_config_from_fields`)."""
-    return _config_from_fields(UpwConfig, fields, {"alme_params": None, "prebinned": False})
+    return _config_from_fields(UpwConfig, fields, _WAITING)
 
 
 def upw_implicit_config_from_fields(fields: dict) -> UpwImplicitConfig:
     """UpwImplicitConfig from the static fields of the JAX package's
     UpwImplicitConfig (see :func:`_config_from_fields`)."""
-    return _config_from_fields(UpwImplicitConfig, fields,
-                               {"alme_params": None, "prebinned": False})
+    return _config_from_fields(UpwImplicitConfig, fields, _WAITING)
 
 
 def up_config_from_fields(fields: dict) -> UpConfig:
     """UpConfig from the static fields of the JAX package's UpConfig (see
     :func:`_config_from_fields`)."""
-    return _config_from_fields(UpConfig, fields, {"alme_params": None, "prebinned": False})
+    return _config_from_fields(UpConfig, fields, _WAITING)
 
 
 def dem_config_from_fields(fields: dict) -> DEMConfig:
     """DEMConfig from the static fields of the JAX package's DEMConfig (see
     :func:`_config_from_fields`)."""
-    return _config_from_fields(DEMConfig, fields, {"alme_params": None, "prebinned": False})
+    return _config_from_fields(DEMConfig, fields, _WAITING)

@@ -18,16 +18,21 @@ column with the group masks on the device, traction tables are indexed
 through the stable particle id ``pid``, and ``lost``, the energies and the
 Newton diagnostics are stacked on the device and read once per chunk.
 
+Nonlocal fracture (``Fracture-Modulus``) runs on the explicit NPC-FS and
+Newmark-β schemes of the -u formulation, on the windowed or fused engine,
+at a re-bin every step (the Beps sweep assumes particles in their slot
+cells).  uGIMP decks are checked once for l_p ≤ h; aLME decks take their
+``ALMEParams`` from the deck's shape-function block and start from β₀ where
+the state carries none (the JAX driver leaves ``alme_params`` unset).
+
 Not ported yet (``NotImplementedError`` naming the item of ROADMAP.md queue
-1): fracture (``Fracture-Modulus``, item 12c); GIMP and aLME shape functions
-and unstructured meshes (item 13, the latter refused by the builder);
-``transfer='scatter'`` on the explicit, implicit and u-pw steps (item 13,
-refused by the steps).
+1): unstructured meshes (item 13, refused by the builder).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import time
 from typing import Optional
@@ -42,7 +47,10 @@ from .formulations.implicit import ImplicitConfig, implicit_step
 from .io import csv_out, vtk
 from .io.builder import SimulationSetup
 from .io.checkpoint import load_checkpoint, save_checkpoint
+from .models import fracture as fracture_mod
 from .ops import windowed
+from .shapefun import alme as alme_mod
+from .shapefun import gimp as gimp_mod
 from .shapefun import lme as lme_mod
 from .utils import profiling
 
@@ -57,11 +65,6 @@ STATIC_SCHEMES = {"Static"}
 DEM_SCHEMES = {"Discrete-Energy-Momentum"}
 
 
-def _later(what, item, where):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1, item {item}, '{where}'")
-
-
 def make_step_config(setup: SimulationSetup, transfer: str = "scatter", active_box=None,
                      dt=None):
     """The step configuration of the deck's scheme and formulation.
@@ -72,9 +75,6 @@ def make_step_config(setup: SimulationSetup, transfer: str = "scatter", active_b
         # fused kernels whenever the step is eligible (the check below
         # falls back to the windowed engine otherwise)
         transfer = "fused"
-    if setup.shapefun in ("gimp", "alme"):
-        raise _later(f"shapefun '{setup.shapefun}'", 13,
-                     "Other shape functions, engines and integrators")
     if dt is None:
         if sp.cel <= 0:
             raise ValueError("solver Cel (celerity) required to compute dt")
@@ -82,6 +82,8 @@ def make_step_config(setup: SimulationSetup, transfer: str = "scatter", active_b
     shp_kw = {}
     if setup.shapefun == "lme":
         shp_kw["lme_params"] = lme_mod.LMEParams(**setup.shapefun_params)
+    if setup.shapefun == "alme":
+        shp_kw["alme_params"] = alme_params_of(setup)
     formulation = setup.formulation
     fused_formulations = (
         # -u: explicit + implicit + static + DEM; -upw: explicit + implicit
@@ -112,7 +114,7 @@ def make_step_config(setup: SimulationSetup, transfer: str = "scatter", active_b
         **shp_kw,
     )
     if setup.fracture is not None:
-        # the JAX package's checks of a fracture deck, then the refusal
+        # the JAX package's checks of a fracture deck, then its route
         if formulation != "u":
             raise ValueError("Fracture-Modulus is wired into the displacement (-u) "
                              "formulations only")
@@ -122,9 +124,10 @@ def make_step_config(setup: SimulationSetup, transfer: str = "scatter", active_b
         if transfer == "scatter":
             raise ValueError("fracture drivers need the slot-layout Beps sums: use "
                              "transfer='windowed' or 'fused' on a structured grid")
-        if float(setup.materials.Ceps.max()) <= 0:
+        ceps_max = float(setup.materials.Ceps.max())
+        if ceps_max <= 0:
             raise ValueError("Fracture-Modulus active but no material defines Ceps > 0")
-        raise _later(f"Fracture-Modulus {setup.fracture!r}", "12c", "Remaining models")
+        common.update(damage=setup.fracture, beps_reach=fracture_mod.beps_reach(ceps_max))
     if formulation in ("up", "upw") and sp.scheme in FE_SCHEMES | GA_SCHEMES:
         raise ValueError(
             f"scheme {sp.scheme!r} is a single-phase (-u) integrator; the "
@@ -165,7 +168,10 @@ def make_step_config(setup: SimulationSetup, transfer: str = "scatter", active_b
         )
     if sp.scheme in EXPLICIT_SCHEMES:
         extra = {}
-        if transfer == "fused" and not setup.neumann and setup.grid.dim == 2:
+        if (transfer == "fused" and not setup.neumann and setup.fracture is None
+                and setup.grid.dim == 2):
+            # (fracture keeps rebin_every = 1, which the step requires: the
+            # Beps cell-offset sweep assumes particles sit in their slot cell)
             # adaptive amortised re-bin: start from the largest safe period
             # for the current particle speeds (2x safety margin);
             # run_simulation shrinks it at chunk boundaries as speeds grow,
@@ -179,6 +185,14 @@ def make_step_config(setup: SimulationSetup, transfer: str = "scatter", active_b
         return ImplicitConfig(quasi_static=True, newton_tol=sp.tol,
                               newton_maxiter=sp.max_iter, **common)
     raise ValueError(f"unknown scheme: {sp.scheme}")
+
+
+def alme_params_of(setup: SimulationSetup) -> alme_mod.ALMEParams:
+    """The deck's aLME parameters (the shape-function block's keys that
+    ``ALMEParams`` has)."""
+    names = {f.name for f in dataclasses.fields(alme_mod.ALMEParams)}
+    return alme_mod.ALMEParams(**{k: v for k, v in setup.shapefun_params.items()
+                                  if k in names})
 
 
 def safe_rebin_period(v, spacing, dt, k_max: int = 16) -> int:
@@ -297,6 +311,14 @@ def run_simulation(
     p = setup.particles
     if transfer in ("windowed", "fused"):
         p = to_slot_layout(p, grid, active_box, allow_lost=not check_lost)
+    if setup.shapefun == "gimp":
+        # the uGIMP window of half-width 2 assumes l_p ≤ h
+        gimp_mod.check_halfwidth(gimp_mod.voxel_halfwidth(p.vol0, p.dim), grid.spacing)
+    if setup.shapefun == "alme" and not bool(torch.any(p.lme_beta != 0)):
+        # a state without β starts from the isotropic β₀ = γ/h²·I
+        p = p.replace(lme_beta=alme_mod.init_lme_beta(
+            p.count, cfg.alme_params, grid.spacing, p.dim, device=device,
+            dtype=p.x.dtype))
     n = setup.solver.n_steps if n_steps is None else n_steps
     d = p.dim
     n_nodes = grid.n_nodes

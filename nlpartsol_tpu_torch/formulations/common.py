@@ -7,7 +7,7 @@ import torch
 
 from ..models import materials as M
 from ..ops import transfer
-from ..shapefun import fem, lme
+from ..shapefun import alme, fem, gimp, lme
 from ..types import Grid
 
 # The kinds whose stress the implicit, u-p, u-pw and DEM steps take: their
@@ -29,19 +29,24 @@ def shapefun_eval(cfg, grid, p):
     if cfg.shapefun == "lme":
         sf = lme.evaluate(grid, p.x, p.lme_lambda, cfg.lme_params)
         return sf, lme.offsets_for(grid.dim, cfg.lme_params)
-    return fem.evaluate(grid, p.x), fem.offsets_for(grid.dim)
+    if cfg.shapefun == "fem":
+        return fem.evaluate(grid, p.x), fem.offsets_for(grid.dim)
+    if cfg.shapefun == "gimp":
+        # l_p ≤ h is checked once by the driver, not in every step
+        lp = gimp.voxel_halfwidth(p.vol0, grid.dim)
+        return gimp.evaluate(grid, p.x, lp), gimp.offsets_for(grid.dim)
+    sf = alme.evaluate(grid, p.x, p.lme_lambda, p.lme_beta, cfg.alme_params)
+    return sf, alme.offsets_for(grid.dim, cfg.alme_params)
 
 
 def check_shapefun(cfg):
-    """'lme' on both engines; 'fem' on the windowed engine only, since the
-    fused kernels compute the LME basis (as the JAX package's do)."""
-    if cfg.shapefun in ("gimp", "alme"):
-        raise NotImplementedError(
-            f"shapefun '{cfg.shapefun}' is not ported yet: ROADMAP.md queue 1, "
-            "item 13, 'Other shape functions, engines and integrators'"
-        )
-    if cfg.shapefun not in ("lme", "fem"):
+    """'lme' on every engine; 'fem', 'gimp' and 'alme' on the windowed and
+    scatter engines only, since the fused kernels compute the LME basis (as
+    the JAX package's do)."""
+    if cfg.shapefun not in ("lme", "fem", "gimp", "alme"):
         raise ValueError(f"unknown shapefun {cfg.shapefun}")
+    if cfg.shapefun == "alme" and getattr(cfg, "alme_params", None) is None:
+        raise ValueError("shapefun 'alme' needs cfg.alme_params (shapefun.alme.ALMEParams)")
     if cfg.shapefun != "lme" and cfg.transfer == "fused":
         raise ValueError(
             f"the fused transfer implements LME only, not shapefun '{cfg.shapefun}': "

@@ -43,8 +43,9 @@ iteration; the 3 of the gathers: r₀, and ∇dU and ∇(V − Vₙ) at the end.
 Not ported yet (each raises ``NotImplementedError`` naming its item of
 ROADMAP.md queue 1): material kinds other than Neo-Hookean,
 Saint-Venant-Kirchhoff and Solid-Rigid (item 12b),
-``axis_name``/``rebin_mode='none'`` (item 15), ``shapefun='gimp'/'alme'``
-and ``transfer='binned'`` (item 13).
+``axis_name``/``rebin_mode='none'`` (item 15) and ``transfer='binned'``
+(item 13).  uGIMP and aLME run on the scatter and windowed engines (as in
+the JAX package, β is not pulled back here).
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ from ..ops import fused_transfer as ft
 from ..ops import solvers, windowed
 from ..ops import tensor as tn
 from ..ops.sparse import nnz as count_nnz
-from ..shapefun import lme
+from ..shapefun import alme, lme
 from ..types import Grid, Particles
 from . import kinematics as kin
 from .common import (check_hyperelastic_kinds, check_shapefun, found_lost, make_engine,
@@ -80,6 +81,7 @@ class DEMConfig:
     dt: float
     shapefun: str = "lme"
     lme_params: lme.LMEParams = dataclasses.field(default_factory=lme.LMEParams)
+    alme_params: Optional[alme.ALMEParams] = None
     kinds: tuple = (3,)  # NEO_HOOKEAN
     mass_tol: float = 1e-12
     newton_tol: float = 1e-6

@@ -16,20 +16,28 @@ Counterpart of ``nlpartsol_tpu/formulations/explicit.py``:
 Transfers run through the slot-layout engines: 'windowed' (plain tensor
 code, ops/windowed.py — the reference of the kernels) or 'fused' (the CUDA
 kernels of ops/fused_transfer.py; the JAX package calls it 'pallas'), in 2D
-and in 3D.  The 3D step is the JAX package's without its TPU kernel-layout
+and in 3D, or through 'scatter' (segment sums over the (Np, K) pattern in
+particle order, ops/transfer.py::ScatterEngine: no slot layout, no
+re-bin).  The 3D step is the JAX package's without its TPU kernel-layout
 view cache (``make_views3``): the CUDA kernels read the slot arrays as they
 are.
 Plain functions: Particles × nodal inputs → Particles.  Diagnostics stay
 device tensors; nothing in a step waits on the host.
 
+The stress entering the internal forces is scaled by (1 − damage_{n+1})
+on every engine, with or without a fracture driver.  The nonlocal fracture
+drivers (``damage='eigenerosion'``/``'eigensoftening'``, models/fracture.py)
+run on the slot layout of the windowed and fused engines, between the
+constitutive update and the internal forces; the scatter engine refuses
+them (``ValueError``, as in the JAX package).
+
 Not ported yet (each raises ``NotImplementedError`` naming its slice of
-ROADMAP.md queue 1): ``halo``/``axis_name``/``rebin_mode='none'`` (item 15),
-``damage`` (nonlocal fracture, item 12c), ``shapefun='gimp'/'alme'`` and
-``transfer='scatter'/'binned'`` (item 13).  The schemes 'FE' and
+ROADMAP.md queue 1): ``halo``/``axis_name``/``rebin_mode='none'`` (item 15)
+and ``transfer='binned'`` (item 13).  The schemes 'FE' and
 'Generalized-alpha' are formulations/integrators.py's steps.
-Every material kind runs, on both engines (item 12a).  ``shapefun='fem'``
-runs on the windowed engine; the fused kernels compute LME only and refuse
-it with ``ValueError``.
+Every material kind runs, on every engine (item 12a).  ``shapefun='fem'``,
+``'gimp'`` and ``'alme'`` run on the windowed and scatter engines; the fused
+kernels compute LME only and refuse them with ``ValueError``.
 """
 
 from __future__ import annotations
@@ -40,12 +48,13 @@ from typing import Optional
 import torch
 
 from ..models import dispatch as con
+from ..models import fracture
 from ..models.materials import MaterialTable
 from ..ops import fused_transfer as ft
 from ..ops import tensor as tn
 from ..ops import windowed
 from ..ops.sparse import nnz as count_nnz
-from ..shapefun import lme
+from ..shapefun import alme, lme
 from ..types import Grid, Particles
 from . import kinematics as kin
 from .common import check_shapefun, found_lost, make_engine, shapefun_eval
@@ -59,13 +68,18 @@ class ExplicitConfig:
     gamma: float = 0.5
     shapefun: str = "lme"
     lme_params: lme.LMEParams = dataclasses.field(default_factory=lme.LMEParams)
+    alme_params: Optional[alme.ALMEParams] = None
     kinds: tuple = (3,)  # NEO_HOOKEAN
     mass_tol: float = 1e-12
-    # transfer backend: 'windowed' or 'fused' (both need active_box)
+    # transfer backend: 'windowed' or 'fused' (both need active_box), or
+    # 'scatter' (any particle order)
     transfer: str = "windowed"
     active_box: Optional[windowed.ActiveBox] = None
-    # nonlocal fracture model, eigenerosion or eigensoftening (not ported yet)
+    # nonlocal fracture driver: None | 'eigenerosion' | 'eigensoftening'
+    # (windowed or fused: the Beps sums run on the slot layout), and the
+    # static cell reach of the largest Beps radius (fracture.beps_reach)
     damage: Optional[str] = None
+    beps_reach: int = 1
     # F-bar volumetric-locking control (the cell is the patch)
     fbar: bool = False
     # multi-device sharding (not ported yet)
@@ -106,23 +120,32 @@ def _check_supported(cfg: ExplicitConfig, p: Particles):
         raise later("rebin_mode='none'", 15, "Multi-device")
     if cfg.rebin_mode not in ("local", "global"):
         raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")
-    if cfg.damage is not None:
-        raise later(f"damage='{cfg.damage}'", "12c", "Remaining models")
+    if cfg.damage not in (None, "eigenerosion", "eigensoftening"):
+        raise ValueError(f"unknown damage driver {cfg.damage}")
     if cfg.scheme != "NPC-FS":
         raise ValueError(
             f"scheme '{cfg.scheme}' is not this step's: use "
             "formulations.integrators.forward_euler_step / generalized_alpha_step "
             "(driver.run_simulation dispatches on the scheme)")
     check_shapefun(cfg)
-    if cfg.transfer in ("scatter", "binned"):
+    if cfg.transfer == "binned":
         raise later(f"transfer '{cfg.transfer}'", 13,
                     "Other shape functions, engines and integrators")
-    if cfg.transfer not in ("windowed", "fused"):
+    if cfg.transfer not in ("windowed", "fused", "scatter"):
         raise ValueError(f"unknown transfer {cfg.transfer}")
-    if cfg.active_box is None:
+    if cfg.transfer == "scatter":
+        if cfg.damage is not None:
+            raise ValueError("fracture drivers require windowed transfer")
+        if cfg.fbar:
+            raise ValueError("fbar requires windowed transfer")
+    elif cfg.active_box is None:
         raise ValueError(f"{cfg.transfer} transfer requires cfg.active_box")
     if cfg.rebin_every < 1:
         raise ValueError("rebin_every must be >= 1")
+    if cfg.damage is not None and cfg.rebin_every != 1:
+        # the Beps cell-offset sweep assumes each particle sits in its slot
+        # cell, which only a re-bin every step keeps
+        raise ValueError("fracture drivers require rebin_every = 1")
 
 
 def _bin_to_slots(p, grid, box, traction, traction_area):
@@ -177,7 +200,18 @@ def _kinematics_and_stress(p, mats, cfg, box, DF, act):
     return DF, F_n1, J_n1, dFdt_n1, cs
 
 
-def _advance(p, act, cs, F_n1, J_n1, dFdt_n1, x_new, v_new, a_p, d_dis, lam):
+def _damage(p, grid, mats, cfg, act, cs, J_n1, F_n1):
+    """(damage, strain_f) at n+1 — the driver's update, or the state's own —
+    and the stress that enters the internal forces, τ·(1 − damage_{n+1})."""
+    damage_n1, strain_f_n1 = p.damage, p.strain_f
+    if cfg.damage is not None:
+        damage_n1, strain_f_n1 = fracture.damage_update(
+            p, grid, cfg.active_box, cfg.damage, mats, act, cs, J_n1, F_n1, cfg.beps_reach)
+    return damage_n1, strain_f_n1, cs.tau * (1.0 - damage_n1)[:, None, None]
+
+
+def _advance(p, act, cs, F_n1, J_n1, dFdt_n1, x_new, v_new, a_p, d_dis, lam, damage,
+             strain_f, lme_beta):
     sel = act[:, None]
     rho_new = p.mass / (p.vol0 * torch.clamp(J_n1, min=1e-12))
     return p.replace(
@@ -197,7 +231,10 @@ def _advance(p, act, cs, F_n1, J_n1, dFdt_n1, x_new, v_new, a_p, d_dis, lam):
         kappa=cs.kappa,
         back_stress=cs.back_stress,
         W=cs.W,
+        damage=damage,
+        strain_f=strain_f,
         lme_lambda=lam,
+        lme_beta=lme_beta,
     )
 
 
@@ -227,9 +264,12 @@ def explicit_step(
     dt = cfg.dt
     gamma = cfg.gamma
 
-    p, lost, traction, traction_area = _bin_to_slots(
-        p, grid, cfg.active_box, traction, traction_area
-    )
+    if cfg.transfer == "windowed":
+        p, lost, traction, traction_area = _bin_to_slots(
+            p, grid, cfg.active_box, traction, traction_area
+        )
+    else:
+        lost = torch.zeros((), dtype=torch.int32, device=p.x.device)
 
     act = p.active
 
@@ -261,10 +301,12 @@ def explicit_step(
     DF, F_n1, J_n1, dFdt_n1, cs = _kinematics_and_stress(
         p, mats, cfg, cfg.active_box, DF, act
     )
+    # --- nonlocal damage: scales the stress entering the internal forces ---
+    damage_n1, strain_f_n1, tau_eff = _damage(p, grid, mats, cfg, act, cs, J_n1, F_n1)
 
     # --- internal forces: f_A = −Σ_p V0 τ ∇N^{n+1}  ---
     dN1 = kin.push_forward_dN(dN, DF)
-    f_int_contrib = -(dN1 @ (cs.tau * p.vol0[:, None, None]).transpose(-1, -2))
+    f_int_contrib = -(dN1 @ (tau_eff * p.vol0[:, None, None]).transpose(-1, -2))
     forces = eng.p2g(f_int_contrib)
 
     # --- traction (Neumann) forces: f_A += Σ_p N A0 t̄ ---
@@ -287,8 +329,10 @@ def explicit_step(
     v_new = v_pred + gamma * dt * a_p
     x_new = p.x + d_dis_p_smooth
 
+    lme_beta = alme.update_beta(p.lme_beta, DF) if cfg.shapefun == "alme" else p.lme_beta
     p_out = _advance(p, act, cs, F_n1, J_n1, dFdt_n1, x_new, v_new, a_p,
-                     d_dis_p_smooth, p.lme_lambda if sf["lam"] is None else sf["lam"])
+                     d_dis_p_smooth, p.lme_lambda if sf["lam"] is None else sf["lam"],
+                     damage_n1, strain_f_n1, lme_beta)
     ke, se = _energies(p, act, v_new, cs)
     diag = dict(
         nnz=count_nnz(mask),
@@ -369,10 +413,13 @@ def _explicit_step_fused(
     )
     DF = grad_du + torch.eye(d, dtype=grad_du.dtype, device=grad_du.device)
     DF, F_n1, J_n1, dFdt_n1, cs = _kinematics_and_stress(p, mats, cfg, box, DF, act)
+    # --- nonlocal damage on the slot arrays of ``p`` (not the kernels'
+    # channel-leading copies); no kernel call ---
+    damage_n1, strain_f_n1, tau_eff = _damage(p, grid, mats, cfg, act, cs, J_n1, F_n1)
 
-    # --- scatter #2: internal forces f_A = −Σ V0·τ·∇N¹ = Σ G·∇N with
-    # G = −V0·τ·DF⁻ᵀ (push-forward folded into the matrix) ---
-    G = -tn.bmm(cs.tau * p.vol0[:, None, None], tn.inv_transpose(DF))
+    # --- scatter #2: internal forces f_A = −Σ V0·τ_eff·∇N¹ = Σ G·∇N with
+    # G = −V0·τ_eff·DF⁻ᵀ (push-forward folded into the matrix) ---
+    G = -tn.bmm(tau_eff * p.vol0[:, None, None], tn.inv_transpose(DF))
     G_t = ft.to_channel_leading(G.reshape(-1, d * d), C, nc)
     dummy = ft.to_channel_leading(torch.zeros_like(p.mass), C, nc)
     nodes2, _, _ = ft.fused_scatter(
@@ -400,7 +447,8 @@ def _explicit_step_fused(
     x_new = p.x + d_dis_smooth
 
     p_out = _advance(p, act, cs, F_n1, J_n1, dFdt_n1, x_new, v_new, a_p,
-                     d_dis_smooth, ft.from_channel_leading(lam_new))
+                     d_dis_smooth, ft.from_channel_leading(lam_new), damage_n1, strain_f_n1,
+                     p.lme_beta)
     ke, se = _energies(p, act, v_new, cs)
     if local_mode and (rebin is None or rebin):
         # restore the slot invariant (no sort); with rebin_every = k > 1
@@ -459,7 +507,8 @@ def run(
     _check_supported(cfg, p)
     if body_accel is None:
         body_accel = torch.zeros((p.dim,), dtype=p.x.dtype, device=p.x.device)
-    p = to_slot_layout(p, grid, cfg.active_box)
+    if cfg.transfer != "scatter":
+        p = to_slot_layout(p, grid, cfg.active_box)
 
     k = cfg.rebin_every
     periodic = (

@@ -12,10 +12,12 @@ Counterpart of ``nlpartsol_tpu/formulations/implicit.py``:
 
 The quasi-static mode is the same machinery without inertial terms.
 
-Two engines, as in the explicit step: ``'windowed'`` (plain tensor code,
-ops/windowed.py — the reference of the kernels, with both preconditioners)
-and ``'fused'`` (the default; the CUDA kernels of ops/fused_transfer.py, the
-JAX package's ``'pallas'``; ``precond='jacobi'`` only).  On the fused engine
+Three engines, as in the explicit step: ``'windowed'`` (plain tensor code,
+ops/windowed.py — the reference of the kernels, with both preconditioners),
+``'scatter'`` (segment sums over the (Np, K) pattern in particle order, no
+slot layout, both preconditioners) and ``'fused'`` (the default; the CUDA
+kernels of ops/fused_transfer.py, the JAX package's ``'pallas'``;
+``precond='jacobi'`` only).  On the fused engine
 λ is solved once per step by the first scatter, which also gives the Jacobi
 stiffness diagonal Σ s·|∇N|² (``gnorm``); every residual is then one
 gradient gather and one G-scatter at that λ, wrapped as linear operations
@@ -34,13 +36,18 @@ line-search residuals and the re-evaluated one; 2L: one JVP, primal and
 tangent, per CG iteration.)  The Newton and Krylov loops read their
 condition on the host once per iteration (``solvers.host_syncs``).
 
+Nonlocal fracture (``damage``) is STAGGERED, as in the JAX package: the
+Newton residuals and the reactions keep the frozen damage d_n, and the
+driver's update runs once at the converged state on the slot layout
+(windowed and fused engines; the scatter engine refuses it).  It launches
+no kernel.
+
 Not ported yet (each raises ``NotImplementedError`` naming its item of
 ROADMAP.md queue 1): material kinds other than Neo-Hookean,
-Saint-Venant-Kirchhoff and Solid-Rigid (item 12b), ``damage`` (item 12c),
-``halo``/``axis_name`` and ``rebin_mode='none'`` (item 15),
-``shapefun='gimp'/'alme'`` and
-``transfer='scatter'/'binned'`` (item 13).  ``shapefun='fem'`` runs on the
-windowed engine; the fused kernels compute LME only and refuse it with
+Saint-Venant-Kirchhoff and Solid-Rigid (item 12b), ``halo``/``axis_name``
+and ``rebin_mode='none'`` (item 15) and ``transfer='binned'`` (item 13).
+``shapefun='fem'``, ``'gimp'`` and ``'alme'`` run on the windowed and
+scatter engines; the fused kernels compute LME only and refuse them with
 ``ValueError``.
 """
 
@@ -52,12 +59,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..models import dispatch as con
+from ..models import fracture
 from ..models.materials import MaterialTable, lame_parameters
 from ..ops import bsr, solvers, windowed
 from ..ops import fused_transfer as ft
 from ..ops import tensor as tn
 from ..ops.sparse import nnz as count_nnz
-from ..shapefun import lme
+from ..shapefun import alme, lme
 from ..types import Grid, Particles
 from . import kinematics as kin
 from .common import (check_hyperelastic_kinds, check_shapefun, found_lost, make_engine,
@@ -98,6 +106,7 @@ class ImplicitConfig:
     gamma: float = 0.5
     shapefun: str = "lme"
     lme_params: lme.LMEParams = dataclasses.field(default_factory=lme.LMEParams)
+    alme_params: Optional[alme.ALMEParams] = None
     kinds: tuple = (3,)  # NEO_HOOKEAN
     mass_tol: float = 1e-12
     # solver tolerances (reference: TOL_NR 1e-5; KSP defaults)
@@ -115,12 +124,14 @@ class ImplicitConfig:
     linear: str = "cg"
     # inner tolerance: 'ew' (Eisenstat-Walker) | 'fixed' (every solve to cg_tol)
     forcing: str = "ew"
-    # transfer backend: 'fused' (CUDA kernels) or 'windowed'; both need
-    # active_box
+    # transfer backend: 'fused' (CUDA kernels) or 'windowed' (both need
+    # active_box), or 'scatter' (any particle order)
     transfer: str = "fused"
     active_box: Optional[windowed.ActiveBox] = None
-    # nonlocal fracture driver (not ported yet)
+    # nonlocal fracture driver, staggered at the converged state: None |
+    # 'eigenerosion' | 'eigensoftening'; the static cell reach of the Beps sums
     damage: Optional[str] = None
+    beps_reach: int = 1
     # multi-device sharding (not ported yet)
     axis_name: Optional[str] = None
     halo: Optional[object] = None
@@ -148,16 +159,19 @@ def _check_supported(cfg: ImplicitConfig, p: Particles):
         raise later("rebin_mode='none'", 15, "Multi-device")
     if cfg.rebin_mode not in ("local", "global"):
         raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")
-    if cfg.damage is not None:
-        raise later(f"damage='{cfg.damage}'", "12c", "Remaining models")
+    if cfg.damage not in (None, "eigenerosion", "eigensoftening"):
+        raise ValueError(f"unknown damage driver {cfg.damage}")
     check_hyperelastic_kinds(cfg, "implicit")
     check_shapefun(cfg)
-    if cfg.transfer in ("scatter", "binned"):
+    if cfg.transfer == "binned":
         raise later(f"transfer '{cfg.transfer}'", 13,
                     "Other shape functions, engines and integrators")
-    if cfg.transfer not in ("windowed", "fused"):
+    if cfg.transfer not in ("windowed", "fused", "scatter"):
         raise ValueError(f"unknown transfer {cfg.transfer}")
-    if cfg.active_box is None:
+    if cfg.transfer == "scatter":
+        if cfg.damage is not None:
+            raise ValueError("fracture drivers require windowed transfer")
+    elif cfg.active_box is None:
         raise ValueError(f"{cfg.transfer} transfer requires cfg.active_box")
     if cfg.precond not in ("jacobi", "block-jacobi"):
         raise ValueError(f"unknown precond {cfg.precond}")
@@ -244,8 +258,19 @@ def _increments(nm, dU, Un_dt, Un_dt2):
     return dU_dt, dU_dt2
 
 
-def _advance(p, act, cs, F_n1, dFdt_n1, J_n1, dis_inc, dv, da, a_blend, lam):
-    """FLIP/PIC particle update (``alpha_blend`` = 1 ⇒ pure FLIP)."""
+def _staggered_damage(p, grid, mats, cfg, act, cs, J_n1, F_n1):
+    """The fracture driver's (damage, strain_f) at the converged state (the
+    state's own without a driver)."""
+    if cfg.damage is None:
+        return p.damage, p.strain_f
+    return tuple(fracture.damage_update(p, grid, cfg.active_box, cfg.damage, mats, act, cs,
+                                        J_n1, F_n1, cfg.beps_reach))
+
+
+def _advance(p, act, cs, F_n1, dFdt_n1, J_n1, dis_inc, dv, da, a_blend, lam, damage=None,
+             strain_f=None, lme_beta=None):
+    """FLIP/PIC particle update (``alpha_blend`` = 1 ⇒ pure FLIP); damage,
+    strain_f and lme_beta keep the state's own unless given."""
     sel = act[:, None]
     return p.replace(
         x=torch.where(sel, p.x + dis_inc, p.x),
@@ -264,7 +289,10 @@ def _advance(p, act, cs, F_n1, dFdt_n1, J_n1, dis_inc, dv, da, a_blend, lam):
         kappa=cs.kappa,
         back_stress=cs.back_stress,
         W=cs.W,
+        damage=p.damage if damage is None else damage,
+        strain_f=p.strain_f if strain_f is None else strain_f,
         lme_lambda=lam,
+        lme_beta=p.lme_beta if lme_beta is None else lme_beta,
     )
 
 
@@ -338,7 +366,7 @@ def implicit_step(
     d = p.dim
     nm = newmark_parameters(cfg.beta, cfg.gamma, cfg.dt)
     lost = torch.zeros((), dtype=torch.int32, device=p.x.device)
-    if not cfg.prebinned:
+    if cfg.transfer == "windowed" and not cfg.prebinned:
         p, lost, traction, traction_area = _bin_to_slots(
             p, grid, cfg.active_box, traction, traction_area)
     act = p.active
@@ -385,6 +413,7 @@ def implicit_step(
     grad_du = kin.disp_gradient(eng.edge_gather(dU), dN)
     DF, F_n1, dFdt_n1, cs = _local_state(p, mats, cfg, nm, w.grad_vel_const, grad_du)
     J_n1 = _det_clamped(F_n1)
+    damage_n1, strain_f_n1 = _staggered_damage(p, grid, mats, cfg, act, cs, J_n1, F_n1)
 
     # reactions: minus the unmasked residual on the Dirichlet rows
     if grid.dirichlet_mask is not None:
@@ -399,7 +428,9 @@ def implicit_step(
     dv = eng.g2p(N, dU_dt + (1.0 - a_blend) * Un_dt)
     da = eng.g2p(N, dU_dt2)
     lam = p.lme_lambda if w.sf["lam"] is None else w.sf["lam"]
-    p_out = _advance(p, act, cs, F_n1, dFdt_n1, J_n1, dis_inc, dv, da, a_blend, lam)
+    lme_beta = alme.update_beta(p.lme_beta, DF) if cfg.shapefun == "alme" else p.lme_beta
+    p_out = _advance(p, act, cs, F_n1, dFdt_n1, J_n1, dis_inc, dv, da, a_blend, lam,
+                     damage_n1, strain_f_n1, lme_beta)
     diag_out = dict(
         nnz=count_nnz(w.mask),
         newton_iters=res.iters,
@@ -493,6 +524,9 @@ def _implicit_step_fused(
 
     DF, F_n1, dFdt_n1, cs = _local_state(p, mats, cfg, nm, grad_vel_const, grad_gather(dU))
     J_n1 = _det_clamped(F_n1)
+    # the staggered update reads the slot arrays of ``p``, not the kernels'
+    # channel-leading copies
+    damage_n1, strain_f_n1 = _staggered_damage(p, grid, mats, cfg, act, cs, J_n1, F_n1)
 
     # reactions on Dirichlet rows: one more G-scatter at the converged state
     if grid.dirichlet_mask is not None:
@@ -506,7 +540,8 @@ def _implicit_step_fused(
     gfields = torch.cat([dU, dU_dt + (1.0 - a_blend) * Un_dt, dU_dt2], dim=1)
     gout = ft.GatherN.apply(gfields, geo)
     p_out = _advance(p, act, cs, F_n1, dFdt_n1, J_n1, gout[:, :d], gout[:, d:2 * d],
-                     gout[:, 2 * d:], a_blend, ft.from_channel_leading(lam_f))
+                     gout[:, 2 * d:], a_blend, ft.from_channel_leading(lam_f), damage_n1,
+                     strain_f_n1)
     if local_mode:
         p_out, lost = windowed.local_rebin(p_out, grid, box)
     diag_out = dict(
@@ -560,13 +595,15 @@ def run(
     n_steps: int,
     body_accel=None,
 ):
-    """Time loop from any particle order (binned once by ``to_slot_layout``).
+    """Time loop from any particle order (binned once by ``to_slot_layout``
+on the slot-layout engines).
     Returns (particles, dict(newton_iters (n_steps,) int32, newton_residual
     (n_steps,)))."""
     _check_supported(cfg, p)
     if body_accel is None:
         body_accel = torch.zeros((p.dim,), dtype=p.x.dtype, device=p.x.device)
-    p = to_slot_layout(p, grid, cfg.active_box)
+    if cfg.transfer != "scatter":
+        p = to_slot_layout(p, grid, cfg.active_box)
     iters, rnorm = [], []
     for _ in range(n_steps):
         p, dg = implicit_step(p, grid, mats, cfg, body_accel)

@@ -12,10 +12,10 @@ Counterpart of ``nlpartsol_tpu/formulations/integrators.py``:
   particle updates at :423-545.
 
 Both run on the windowed engine, as in the JAX package (its driver routes
-them there): each step bins its particles to slots at the start, so they
-take any particle order.  ``transfer='scatter'`` waits for ROADMAP.md queue
-1, item 13; the fused kernels have no path for these schemes (``ValueError``,
-as ``common.make_engine`` says).
+them there: each step bins its particles to slots at the start, so they
+take any particle order), or on the scatter engine (particle order, no
+slot layout); the fused kernels have no path for these schemes
+(``ValueError``, as ``common.make_engine`` says).
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def _check_supported(cfg: ExplicitConfig, p: Particles):
     if cfg.damage is not None:
         raise ValueError("Forward-Euler / Generalized-alpha have no fracture hooks")
     check_shapefun(cfg)
-    if cfg.transfer == "scatter":
+    if cfg.transfer == "binned":
         raise later(f"transfer '{cfg.transfer}' for scheme '{cfg.scheme}'", 13,
                     "Other shape functions, engines and integrators")
     if cfg.active_box is None and cfg.transfer == "windowed":
@@ -65,15 +65,18 @@ def _check_supported(cfg: ExplicitConfig, p: Particles):
 
 
 def _begin(p, grid, cfg):
-    """Bin to slots, evaluate the basis, build the engine and the lumped
-    mass (the part both integrators share)."""
+    """Bin to slots (windowed engine), evaluate the basis, build the engine
+    and the lumped mass (the part both integrators share)."""
     _check_supported(cfg, p)
-    binning = windowed.bin_particles(grid, cfg.active_box, p.x, p.active)
-    p = windowed.permute_to_slots(p, binning)
+    lost = torch.zeros((), dtype=torch.int32, device=p.x.device)
+    if cfg.transfer == "windowed":
+        binning = windowed.bin_particles(grid, cfg.active_box, p.x, p.active)
+        p = windowed.permute_to_slots(p, binning)
+        lost = binning.lost
     act = p.active
     sf, offsets = shapefun_eval(cfg, grid, p)
     N, dN, mask = sf["N"], sf["dN"], sf["mask"] & act[:, None]
-    lost = binning.lost + found_lost(sf, act)
+    lost = lost + found_lost(sf, act)
     eng = make_engine(cfg, grid, sf, offsets, mask)
     m_nodes = eng.p2g(N * p.mass[:, None])
     m_safe = torch.clamp(m_nodes, min=cfg.mass_tol)[:, None]

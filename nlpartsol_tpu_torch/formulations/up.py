@@ -42,8 +42,9 @@ iterate.)  K = n + L/20 when no solve runs all its cycles.
 Not ported yet (each raises ``NotImplementedError`` naming its item of
 ROADMAP.md queue 1): material kinds other than Neo-Hookean,
 Saint-Venant-Kirchhoff and Solid-Rigid (item 12b),
-``axis_name``/``rebin_mode='none'`` (item 15), ``shapefun='gimp'/'alme'``
-and ``transfer='binned'`` (item 13).  The step is
+``axis_name``/``rebin_mode='none'`` (item 15) and ``transfer='binned'``
+(item 13).  uGIMP and aLME run on the scatter and windowed engines (aLME's
+β pulled back by ΔF each step).  The step is
 dimension-generic like the JAX package's; the tests and ``chip_smoke.py``
 hold it in 2D.
 """
@@ -60,7 +61,7 @@ from ..ops import fused_transfer as ft
 from ..ops import windowed
 from ..ops import tensor as tn
 from ..ops.sparse import nnz as count_nnz
-from ..shapefun import lme
+from ..shapefun import alme, lme
 from ..types import Grid, Particles
 from . import kinematics as kin
 from .common import (check_hyperelastic_kinds, check_shapefun, found_lost, make_engine,
@@ -80,6 +81,7 @@ class UpConfig:
     gamma: float = 0.5
     shapefun: str = "lme"
     lme_params: lme.LMEParams = dataclasses.field(default_factory=lme.LMEParams)
+    alme_params: Optional[alme.ALMEParams] = None
     kinds: tuple = (3,)  # NEO_HOOKEAN
     mass_tol: float = 1e-12
     newton_tol: float = 1e-5
@@ -239,11 +241,13 @@ def up_step(
                          grid.n_nodes, d, p.x, cfg)
     dU, dlam = masked(res.x)
     dU_dt, dU_dt2 = _increments(nm, dU, Un_dt, Un_dt2)
-    _, F_n1, dFdt_n1, lam_n1, cs = local_state(dU, dlam)
+    DF, F_n1, dFdt_n1, lam_n1, cs = local_state(dU, dlam)
     a_blend = cfg.alpha_blend
     p_out = _advance(p, act, cs, F_n1, dFdt_n1, _det_clamped(F_n1), eng.g2p(N, dU),
                      eng.g2p(N, dU_dt + (1.0 - a_blend) * Un_dt), eng.g2p(N, dU_dt2), a_blend,
-                     p.lme_lambda if sf["lam"] is None else sf["lam"])
+                     p.lme_lambda if sf["lam"] is None else sf["lam"],
+                     lme_beta=(alme.update_beta(p.lme_beta, DF) if cfg.shapefun == "alme"
+                               else None))
     p_out = p_out.replace(pw=torch.where(act, lam_n1, p.pw))  # λ_n ← λ_{n+1}
     return p_out, _implicit_diag(res, count_nnz(mask), lost)
 

@@ -19,9 +19,11 @@ The implicit step solves the stacked nodal unknown z = (dU, dθ) by
 Newton-GMRES on a row- and column-scaled residual (without the scaling the
 storativity-sized θ rows never reach the float32 residual norm).
 
-Two engines, as for the single-phase steps: ``'windowed'`` (plain tensor
-code, ops/windowed.py, LME or FEM shape functions) and ``'fused'`` (the CUDA
-kernels of ops/fused_transfer.py, LME only; the JAX package's ``'pallas'``).
+Three engines, as for the single-phase steps: ``'windowed'`` (plain tensor
+code, ops/windowed.py), ``'scatter'`` (segment sums over the (Np, K)
+pattern in particle order, no slot layout), both with LME, FEM, uGIMP or
+aLME shape functions, and ``'fused'`` (the CUDA kernels of
+ops/fused_transfer.py, LME only; the JAX package's ``'pallas'``).
 The fused explicit step is 3 scatters and 5 gathers at margin 0, then a
 local re-bin: scatter λ-solve (2 + 2d + 1 channels), gathers of [Δu | θ]
 with ∇Δu, of ∇v and of ∇θ (θ packed in row 0 of a d-vector field),
@@ -59,8 +61,8 @@ converged iterate.)  K = n + L/20 when no solve runs all its cycles.
 Not ported yet (each raises ``NotImplementedError`` naming its item of
 ROADMAP.md queue 1): soil kinds other than Neo-Hookean,
 Saint-Venant-Kirchhoff and Solid-Rigid (item 12b),
-``halo``/``axis_name``/``rebin_mode='none'`` (item 15),
-``shapefun='gimp'/'alme'`` and ``transfer='scatter'/'binned'`` (item 13).
+``halo``/``axis_name``/``rebin_mode='none'`` (item 15) and
+``transfer='binned'`` (item 13).
 The steps are dimension-generic like the JAX package's; the tests and
 ``chip_smoke.py`` hold them in 2D.
 """
@@ -79,7 +81,7 @@ from ..ops import fused_transfer as ft
 from ..ops import solvers, windowed
 from ..ops import tensor as tn
 from ..ops.sparse import nnz as count_nnz
-from ..shapefun import lme
+from ..shapefun import alme, lme
 from ..types import Grid, Particles, Record
 from . import kinematics as kin
 from .common import (check_hyperelastic_kinds, check_shapefun, found_lost, make_engine,
@@ -116,9 +118,11 @@ class UpwConfig:
     gamma: float = 0.5
     shapefun: str = "lme"
     lme_params: lme.LMEParams = dataclasses.field(default_factory=lme.LMEParams)
+    alme_params: Optional[alme.ALMEParams] = None
     kinds: tuple = (3,)  # NEO_HOOKEAN
     mass_tol: float = 1e-12
-    # transfer backend: 'windowed' or 'fused' (both need active_box)
+    # transfer backend: 'windowed' or 'fused' (both need active_box), or
+    # 'scatter' (any particle order)
     transfer: str = "windowed"
     active_box: Optional[windowed.ActiveBox] = None
     axis_name: Optional[str] = None  # multi-device (not ported yet)
@@ -139,6 +143,7 @@ class UpwImplicitConfig:
     gamma: float = 0.5
     shapefun: str = "lme"
     lme_params: lme.LMEParams = dataclasses.field(default_factory=lme.LMEParams)
+    alme_params: Optional[alme.ALMEParams] = None
     kinds: tuple = (3,)  # NEO_HOOKEAN
     mass_tol: float = 1e-12
     newton_tol: float = 1e-5
@@ -146,7 +151,8 @@ class UpwImplicitConfig:
     krylov_tol: float = 1e-7
     krylov_maxiter: int = 200
     alpha_blend: float = 1.0  # 1 ⇒ FLIP
-    # transfer backend: 'fused' (CUDA kernels) or 'windowed'
+    # transfer backend: 'fused' (CUDA kernels) or 'windowed' (both need
+    # active_box), or 'scatter' (any particle order)
     transfer: str = "fused"
     active_box: Optional[windowed.ActiveBox] = None
     axis_name: Optional[str] = None  # multi-device (not ported yet)
@@ -173,15 +179,24 @@ def _check_supported(cfg, p: Particles):
         raise later("rebin_mode='none'", 15, "Multi-device")
     if cfg.rebin_mode != "local":
         raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")
-    if cfg.transfer in ("scatter", "binned"):
+    if cfg.transfer == "binned":
         raise later(f"transfer '{cfg.transfer}'", 13,
                     "Other shape functions, engines and integrators")
-    if cfg.transfer not in ("windowed", "fused"):
+    if cfg.transfer not in ("windowed", "fused", "scatter"):
         raise ValueError(f"unknown transfer {cfg.transfer}")
     check_hyperelastic_kinds(cfg, "u-pw")
     check_shapefun(cfg)
-    if cfg.active_box is None:
+    if cfg.transfer != "scatter" and cfg.active_box is None:
         raise ValueError(f"{cfg.transfer} transfer requires cfg.active_box")
+
+
+def _bin_windowed(p, grid, cfg):
+    """The windowed engine bins to slots at step start; the scatter engine
+    takes the particles in their order."""
+    if cfg.transfer == "windowed":
+        p, lost, _, _ = _bin_to_slots(p, grid, cfg.active_box, None, None)
+        return p, lost
+    return p, torch.zeros((), dtype=torch.int32, device=p.x.device)
 
 
 def init_mixture_state(p: Particles, mats: MaterialTable, mix: MixtureTable) -> Particles:
@@ -271,7 +286,7 @@ def upw_step(
         return _upw_step_fused(p, grid, mats, mix, cfg, body_accel, pw_dirichlet_mask,
                                pw_dirichlet_value)
     dt, gamma, d = cfg.dt, cfg.gamma, p.dim
-    p, lost, _, _ = _bin_to_slots(p, grid, cfg.active_box, None, None)
+    p, lost = _bin_windowed(p, grid, cfg)
     act = p.active
     K_f, rho_f0, phi_s0, phi_f0, k_perm, soil = _mixture_fields(p, mats, mix)
     g = cfg.gravity_g
@@ -580,7 +595,7 @@ def upw_newmark_step(
     dt, gamma = cfg.dt, cfg.gamma
     nm = newmark_parameters(cfg.beta, cfg.gamma, dt)
     g = cfg.gravity_g
-    p, lost, _, _ = _bin_to_slots(p, grid, cfg.active_box, None, None)
+    p, lost = _bin_windowed(p, grid, cfg)
     act = p.active
     K_f, rho_f0, phi_s0, phi_f0, k_perm, soil = _mixture_fields(p, mats, mix)
 
@@ -843,7 +858,8 @@ def run(p, grid, mats, mix, cfg, n_steps, body_accel=None, pw_dirichlet_mask=Non
     _check_supported(cfg, p)
     if body_accel is None:
         body_accel = torch.zeros((p.dim,), dtype=p.x.dtype, device=p.x.device)
-    p = to_slot_layout(p, grid, cfg.active_box)
+    if cfg.transfer != "scatter":
+        p = to_slot_layout(p, grid, cfg.active_box)
     hist = {"nnz": [], "lost": []}
     for _ in range(n_steps):
         p, diag = upw_step(p, grid, mats, mix, cfg, body_accel, pw_dirichlet_mask,

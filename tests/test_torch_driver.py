@@ -3,8 +3,9 @@ configuration ``make_step_config`` picks for each scheme, formulation and
 shape function (the JAX transfer 'pallas' is the port's 'fused'); a whole
 ``run_simulation`` of tests/test_io.py's bar, and a JAX backup resumed by
 the port, tracking the JAX run by pid; tractions aligned through pid under
-a shuffled storage order on both engines; the CLI's outputs; and the
-refusal of fracture (ROADMAP.md queue 1, item 12c)."""
+a shuffled storage order on both engines; the CLI's outputs; and a
+fracture deck through both CLIs, and a JAX backup taken mid-fracture
+resumed by the port."""
 
 import dataclasses
 import os
@@ -21,7 +22,7 @@ from nlpartsol_tpu_torch.io.builder import build_simulation
 
 import _torch_decks as decks
 from _torch_port import assert_tracks, by_pid, cheap_jax_compiles  # noqa: F401
-from test_io import bar_case, upw_case  # noqa: F401
+from test_io import bar_case, fracture_bar_case, upw_case  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -71,9 +72,10 @@ def test_make_step_config_matches_jax(bar_case, upw_case):  # noqa: F811
     assert checked > 100
     setup = build_simulation(str(decks.set_shapefun(bar_case, "LME")), device="cpu")
     assert driver.make_step_config(setup, transfer="auto").transfer == "fused"
-    setup.shapefun = "gimp"
-    with pytest.raises(NotImplementedError, match="item 13"):
-        driver.make_step_config(setup, transfer="auto")
+    for shapefun in ("gimp", "alme"):
+        # the kernels compute LME only: the windowed engine takes the deck
+        setup.shapefun = shapefun
+        assert driver.make_step_config(setup, transfer="auto").transfer == "windowed"
 
 
 def _with_mode(setup, tensor):
@@ -153,13 +155,105 @@ def test_cli_writes_outputs(bar_case, monkeypatch):  # noqa: F811
                      "--resume", "out/backup.npz"]) == 0
 
 
-def test_fracture_waits_for_item_12c(bar_case, monkeypatch):  # noqa: F811
-    monkeypatch.chdir(bar_case)
-    setup = build_simulation(str(decks.add_fracture(bar_case)), device="cpu")
-    assert setup.fracture == "eigenerosion"
-    with pytest.raises(NotImplementedError, match="item 12c, 'Remaining models'"):
-        driver.run_simulation(setup, progress=False)
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        cli.main(["-f", "sim.nlp", "--platform", "cpu", "--Fracture-Modulus", "Eigensoftening"])
+@pytest.mark.parametrize("transfer", ["windowed", "auto"])
+def test_fracture_deck_matches_jax_cli(transfer, fracture_bar_case, monkeypatch):  # noqa: F811
+    """tests/test_io.py's notched-bar deck through both CLIs with
+    --Fracture-Modulus Eigenerosion ('auto': the fused engine, its plain
+    versions here, at a re-bin every step): the last backups' states by pid
+    (x within STEP_TOL, damage equal), the centre eroded and the VTK damage
+    field written; an unknown modulus is refused as by the JAX CLI."""
+    from nlpartsol_tpu.cli import main as jax_main
+    from nlpartsol_tpu_torch.io.checkpoint import load_checkpoint
+
+    monkeypatch.chdir(fracture_bar_case)
+    args = ["--FORMULATION-U", "-f", "sim.nlp", "--Fracture-Modulus", "Eigenerosion",
+            "--backup-every", "60", "--transfer"]
+    assert jax_main(args + [{"auto": "auto", "windowed": "windowed"}[transfer]]) == 0
+    os.rename("out", "out_jax")
+    setup = build_simulation("sim.nlp", device="cpu")
+    setup.fracture = "eigenerosion"
+    cfg = driver.make_step_config(setup, transfer=transfer)
+    assert cfg.damage == "eigenerosion" and cfg.beps_reach == 2 and cfg.rebin_every == 1
+    assert cfg.transfer == {"auto": "fused", "windowed": "windowed"}[transfer]
+    assert cli.main(args + [transfer, "--platform", "cpu"]) == 0
+    pt, step_t, _ = load_checkpoint(os.path.join("out", "backup.npz"), device="cpu")
+    pj, step_j, _ = load_checkpoint(os.path.join("out_jax", "backup.npz"), device="cpu")
+    assert step_t == step_j == 60
+    assert_tracks(pt, pj)
+    got, ref = by_pid(pt, names=("damage",)), by_pid(pj, names=("damage",))
+    np.testing.assert_array_equal(got["damage"], ref["damage"])
+    assert ref["damage"].max() == 1.0 and ref["damage"].min() == 0.0
+    last = sorted(f for f in os.listdir("out") if f.startswith("particles_"))[-1]
+    assert "SCALARS damage" in (fracture_bar_case / "out" / last).read_text()
     with pytest.raises(SystemExit, match="Eigenerosion or"):
         cli.main(["-f", "sim.nlp", "--platform", "cpu", "--Fracture-Modulus", "PhaseField"])
+
+
+def test_jax_fracture_backup_resumes_in_port(fracture_bar_case, tmp_path,  # noqa: F811
+                                            monkeypatch):
+    """A JAX backup taken mid-fracture (some particles eroded, the rest
+    intact) resumed by the port's driver: the next steps match the JAX
+    run's, by pid (x within STEP_TOL, damage equal)."""
+    monkeypatch.chdir(fracture_bar_case)
+    kw = dict(transfer="windowed", write_outputs=False, progress=False, n_steps=36)
+    sj = jax_build("sim.nlp")
+    sj.fracture = "eigenerosion"
+    pj, _ = jdriver.run_simulation(sj, backup_every=24, **kw)
+    from nlpartsol_tpu_torch.io.checkpoint import load_checkpoint
+
+    mid, step, _ = load_checkpoint(os.path.join("out", "backup.npz"), device="cpu")
+    dmg = mid.damage[mid.active]
+    assert step == 24 and 0 < int((dmg == 1.0).sum()) < int(mid.active.sum()), \
+        "the backup is not mid-fracture"
+    st = build_simulation("sim.nlp", device="cpu")
+    st.fracture = "eigenerosion"
+    pt, hist = driver.run_simulation(st, resume=os.path.join("out", "backup.npz"), **kw)
+    assert len(hist["kinetic_energy"]) == 12
+    assert_tracks(pt, pj)
+    got, ref = by_pid(pt, names=("damage",)), by_pid(pj, names=("damage",))
+    np.testing.assert_array_equal(got["damage"], ref["damage"])
+
+
+def test_alme_deck_runs_like_explicit_run(tmp_path, monkeypatch):
+    """An aLME deck (γ 2.5) through ``run_simulation`` on the windowed
+    engine, against ``explicit.run`` on the same built particles with the
+    config's ``ALMEParams`` and β₀ (the JAX driver has no aLME route to hold
+    it against): x, v, F, stress and β by pid, β finite and pulled back."""
+    from chip_smoke import write_deck
+    from nlpartsol_tpu_torch.formulations import explicit
+    from nlpartsol_tpu_torch.ops import windowed
+    from nlpartsol_tpu_torch.shapefun import alme
+
+    h = 1.0 / 12
+    path = write_deck(str(tmp_path), (12, 12), h, (6, 6), (3 * h, 3 * h), shapefun="aLME",
+                      steps=4)
+    with open(path) as fh:
+        text = fh.read()
+    assert "gamma=3.0" in text
+    with open(path, "w") as fh:
+        fh.write(text.replace("gamma=3.0", "gamma=2.5"))
+    monkeypatch.chdir(tmp_path)
+
+    def built():
+        setup = build_simulation(path, device="cpu")
+        x = setup.particles.x.numpy()
+        v = 0.5 * np.stack([np.sin(2 * np.pi * x[:, 1]), np.zeros(len(x))], -1)
+        setup.particles = setup.particles.replace(v=torch.as_tensor(v.astype(np.float32)))
+        return setup
+
+    setup = built()
+    p0 = setup.particles
+    box = windowed.default_box(setup.grid, p0.x.numpy(), p0.active.numpy())
+    cfg = driver.make_step_config(setup, transfer="windowed", active_box=box)
+    assert cfg.shapefun == "alme" and cfg.alme_params == alme.ALMEParams(gamma=2.5)
+    beta0 = alme.init_lme_beta(p0.count, cfg.alme_params, h, 2, device="cpu")
+    ref, _ = explicit.run(p0.replace(lme_beta=beta0), setup.grid, setup.materials, cfg, 4)
+    got, hist = driver.run_simulation(built(), transfer="windowed", n_steps=4,
+                                      write_outputs=False, progress=False)
+    assert len(hist["kinetic_energy"]) == 4
+    assert_tracks(got, ref)
+    bg = by_pid(got, names=("lme_beta",))["lme_beta"]
+    br = by_pid(ref, names=("lme_beta",))["lme_beta"]
+    np.testing.assert_allclose(bg, br, rtol=1e-5, atol=1e-5 * np.abs(br).max())
+    b0 = alme.beta0(cfg.alme_params, h, 2)
+    assert np.isfinite(bg).all() and np.abs(bg - b0).max() > 1e-4 * np.abs(b0).max()

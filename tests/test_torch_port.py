@@ -61,8 +61,9 @@ def test_config_from_fields_maps_the_jax_config():
     cfg_t = convert.config_from_fields(static)
     assert cfg_t == tex.ExplicitConfig(dt=1e-4, lme_params=lt, active_box=tb, transfer="fused",
                                        rebin_every=4, fbar=True)
-    with pytest.raises(NotImplementedError, match="beps_reach"):
-        convert.config_from_fields({**static, "beps_reach": 2})
+    assert convert.config_from_fields({**static, "beps_reach": 2}).beps_reach == 2
+    with pytest.raises(NotImplementedError, match="prebinned"):
+        convert.config_from_fields({**static, "prebinned": True})
     with pytest.raises(ValueError, match="unknown field"):
         convert.config_from_fields({**static, "bogus": 1})
 

@@ -210,14 +210,13 @@ def test_new_steps_refuse_what_waits():
         for change, match in [(dict(axis_name="p"), "item 15"),
                               (dict(rebin_mode="none"), "item 15"),
                               (dict(transfer="binned"), "item 13"),
-                              (dict(shapefun="gimp"), "item 13"),
-                              (dict(shapefun="alme"), "item 13"),
                               (dict(kinds=(tM.HENCKY,)), "Remaining models")]:
             with pytest.raises(NotImplementedError, match=match):
                 step(tp, tg, hencky if "kinds" in change else mt, cfg.replace(**change),
                      torch.zeros(2))
-        with pytest.raises(ValueError):
-            step(tp, tg, mt, cfg.replace(shapefun="fem"), torch.zeros(2))
+        for shapefun in ("fem", "gimp", "alme"):
+            with pytest.raises(ValueError):
+                step(tp, tg, mt, cfg.replace(shapefun=shapefun), torch.zeros(2))
     # the JAX configs' `prebinned` is not a port option: only its default converts
     for conv in (convert.up_config_from_fields, convert.dem_config_from_fields):
         assert conv({"dt": 1e-4, "prebinned": False}).transfer == "scatter"

@@ -155,18 +155,18 @@ def test_options_that_wait_raise():
     body = torch.as_tensor(BODY)
     base = tupw.UpwConfig(dt=1e-6, active_box=box)
     waiting = [("item 15", dict(axis_name="p")), ("item 15", dict(halo=object())),
-               ("item 15", dict(rebin_mode="none")), ("item 13", dict(shapefun="gimp")),
-               ("item 13", dict(shapefun="alme")), ("item 13", dict(transfer="scatter")),
-               ("item 13", dict(transfer="binned"))]
+               ("item 15", dict(rebin_mode="none")), ("item 13", dict(transfer="binned"))]
     for item, kw in waiting:
         with pytest.raises(NotImplementedError, match=item):
             tupw.upw_step(tp, tg, tm, tmix, base.replace(**kw), body)
         with pytest.raises(NotImplementedError, match=item):
             tupw.upw_newmark_step(tp, tg, tm, tmix, tupw.UpwImplicitConfig(
                 dt=1e-6, active_box=box).replace(**kw), body)
-    with pytest.raises(ValueError, match="LME only"):
-        tupw.upw_step(tp, tg, tm, tmix, base.replace(shapefun="fem", transfer="fused"), body)
+    for shapefun in ("fem", "gimp"):
+        with pytest.raises(ValueError, match="LME only"):
+            tupw.upw_step(tp, tg, tm, tmix, base.replace(shapefun=shapefun, transfer="fused"),
+                          body)
     with pytest.raises(ValueError, match="active_box"):
         tupw.upw_step(tp, tg, tm, tmix, base.replace(active_box=None), body)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        convert.upw_config_from_fields(dict(dt=1e-6, alme_params=object()))
+        convert.upw_config_from_fields(dict(dt=1e-6, prebinned=True))
