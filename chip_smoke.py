@@ -10,8 +10,9 @@ explicit and implicit soil-water mixture (u-pw) step, the 2D mixed u-p and
 Discrete Energy-Momentum (DEM) steps, the explicit step with every
 constitutive model in 2D and 3D, and nonlocal fracture on the explicit
 (2D, 3D) and implicit steps, on the fused kernels; uGIMP and aLME on the
-windowed engine; the scatter engine on every step that takes it; the deck
-entry point — on the card.  Each phase
+windowed engine; the scatter engine on every step that takes it;
+unstructured T3/Q4/T4/H8 background meshes with FEM and meshfree LME; the
+deck entry point — on the card.  Each phase
 prints one JSON line; any failure ends the run with a non-zero exit code.
 Without a CUDA device the script fails at once.
 
@@ -67,7 +68,7 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              bench_upw.py --implicit's step: 256² nodes, 65,536 particles,
              capacity-6 box of 132² cells, dt 20× the explicit one,
              Newton-GMRES on the row- and column-scaled residual; 1 warm-up
-             + 3 timed steps (the script times 8), every Newton loop ended by
+             + 1 timed step (the script times 8), every Newton loop ended by
              its tolerance or stall rule (``converged`` reported), nothing
              lost, launches held to the formula of
              formulations/upw.py, host syncs, 5 J·v under the profiler (a
@@ -82,7 +83,7 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              ``implicit`` (256² nodes, 65,536 particles, capacity-6 box of
              132² cells), Neo-Hookean E 1e7, ν 0.3, LME γ=3, dt = 2h/c,
              UpConfig's Newton-GMRES defaults, a local re-bin every step; 1
-             warm-up + 2 timed steps, each Newton loop ended by its tolerance
+             warm-up + 1 timed step, each Newton loop ended by its tolerance
              or stall rule (``converged`` reported), nothing lost, launches
              held to the formula of formulations/up.py, host syncs, host ms
              per residual and per J·v, 5 J·v under the profiler, and one
@@ -145,7 +146,8 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              the fused routes, finite fields, lost 0; fracture from the
              deck's Fracture-Modulus key on the fused and windowed explicit
              and the Newmark-β routes, at a re-bin every step; uGIMP; aLME
-             with β finite and pulled back), then
+             with β finite and pulled back; an unstructured T3 background,
+             FEM and LME, on the scatter engine), then
              the reference binary's DEM goldens through the port's builder
              in float64
   fracture   eigenerosion, then eigensoftening, on the main path's problem
@@ -178,6 +180,28 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              implicit (1 step), Forward-Euler and Generalized-α steps, 2
              steps each; and a traction deck through ``run_simulation``
              with the particles stored shuffled
+  femesh     scripts/bench_femesh.py's problem on an unstructured mesh
+             (shapefun/femesh.py, the scatter engine; no kernel): the 192²
+             perturbed T3 mesh (37,249 nodes, 73,728 triangles), 221,184
+             particles, Neo-Hookean E 1e7, ν 0.3, meshfree LME γ=3 over the
+             node cloud, dt = 0.25·(smallest edge)/c, 2 warm-up + 10 timed
+             steps; then FEM T3 on the same mesh: ms a step, nnz, nnz/s, K,
+             Emax, peak memory, host build seconds, lost 0, and where a step's
+             time goes (shape functions, one P2G and one G2P)
+  femesh3d   the port's 3D case: a perturbed H8 mesh of 32³ elements,
+             262,144 Gauss-point particles, FEM H8 and LME (the LME
+             candidate bytes printed first), then its 6-tets-a-hex T4 split,
+             196,608 particles, FEM; 1 + 4 steps each, reported as femesh
+  femesh_parity
+             a Q4 FEMesh on the unperturbed 128² node grid of ``scatter``
+             against the structured grid on the windowed engine, 8 steps from
+             the same particles, by pid (rel_dx < 1e-3, rel_dv < 1e-2), FEM
+             and LME; tests/test_femesh.py's T3 bar to a quarter period (error
+             < 0.12, FEM and LME) and its 3 implicit steps, converged
+  femesh_scatter
+             every step that takes a FEMesh (Forward-Euler, Generalized-α,
+             quasi-static, u-pw explicit and implicit, u-p, DEM) on the T3 bar,
+             2 steps each: finite, lost 0, Newton loops converged
   probes     the lane-roll probes: a roll sum checked exactly against
              torch.roll, and timed beside its multiply-add twin at 4 shapes
   large      (if time allows) the fused path alone at the bigger size: 3D
@@ -1205,7 +1229,9 @@ def phase_implicit_roofline(grid, p, mats, cfg, counts, steps):
 # warm-up and timed steps, parity steps (the script times 16 explicit and 8
 # implicit steps).
 UPW = dict(n_side=512, warm=4, steps=16, parity_steps=8)
-UPW_IMPLICIT = dict(n_side=256, warm=1, steps=3, parity_steps=2, parity_n_side=128)
+# timed steps 3 → 1 (u-p's and DEM's 2 → 1) to keep the whole script inside its
+# limit with the unstructured phases (PERF.md §5: host-bound, 15-25 s a step)
+UPW_IMPLICIT = dict(n_side=256, warm=1, steps=1, parity_steps=2, parity_n_side=128)
 # per explicit step: 3 scatters and 5 gathers, by launch key
 UPW_LAUNCHES = {"lme_scatter2d:solve": 1, "lme_scatter2d:G": 2, "lme_gather2d:N+grad": 1,
                 "lme_gather2d:grad": 2, "lme_gather2d:N": 2}
@@ -1464,7 +1490,7 @@ def phase_upw_implicit(device):
 
     say(phase="upw_implicit", grid="x".join(map(str, grid.dims)), particles=p0.count,
         slots=cfg.active_box.n_slots, dt=cfg.dt, warmup_steps=spec["warm"], steps=steps,
-        depth_cut="1 warm-up + 3 timed steps (scripts/bench_upw.py --implicit times 8)",
+        depth_cut=f"1 warm-up + {steps} timed step(s) (scripts/bench_upw.py --implicit times 8)",
         ms_per_step=1e3 * seconds / steps, step_ms=times, nnz_per_step=total_nnz / steps,
         nnz_per_s=total_nnz / seconds, newton_iters=[x[0] for x in hist],
         gmres_iters=[x[1] for x in hist], gmres_checks=[x[4] for x in hist],
@@ -1695,8 +1721,8 @@ def _calls_roofline(grid, p, cfg, counts, steps, calls, spec, path, sum_abs_scal
 # DEM: discrete gradient, DEMConfig's defaults (Newton tol 1e-6, CG) at dt =
 # h/c, as tests/test_dem.py:127 uses.  Depth: warm-up and timed steps; the
 # parity legs at ``parity_n_side``².
-UP = dict(n_side=256, warm=1, steps=2, parity_steps=2, parity_n_side=64)
-DEM = dict(n_side=256, warm=1, steps=2, parity_steps=2, parity_n_side=128)
+UP = dict(n_side=256, warm=1, steps=1, parity_steps=2, parity_n_side=64)
+DEM = dict(n_side=256, warm=1, steps=1, parity_steps=2, parity_n_side=128)
 C_SOLID = float(np.sqrt(1e7 / 1000.0))
 
 
@@ -2779,18 +2805,47 @@ def write_grid_mesh(path, cells, h, origin=None):
     return path
 
 
+def write_triangle_mesh(path, cells, h):
+    """A 2D GiD background of T3 triangles (two a cell) over the nodes of
+    :func:`write_grid_mesh`, in its node order, with the odd interior node
+    columns moved by 0.2·h along x: a non-Cartesian mesh."""
+    nodes = (cells[0] + 1, cells[1] + 1)
+    idx = np.stack(np.meshgrid(*[np.arange(n) for n in nodes], indexing="ij"), -1).reshape(-1, 2)
+    xyz = h * idx.astype(np.float64)
+    odd = (idx[:, 0] % 2 == 1) & (idx[:, 0] < cells[0])
+    xyz[odd, 0] += 0.2 * h
+    ids = np.arange(nodes[0] * nodes[1]).reshape(nodes) + 1
+    i, j = np.meshgrid(np.arange(cells[0]), np.arange(cells[1]), indexing="ij")
+    a, b, c, d = ids[i, j], ids[i + 1, j], ids[i + 1, j + 1], ids[i, j + 1]
+    tris = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3),
+                           np.stack([a, c, d], -1).reshape(-1, 3)])
+    with open(path, "w") as fh:
+        fh.write("MESH dimension 2 ElemType Triangle Nnode 3\nCoordinates\n")
+        np.savetxt(fh, np.column_stack([np.arange(1, len(xyz) + 1), xyz]),
+                   fmt=["%d", "%.17g", "%.17g"])
+        fh.write("End Coordinates\nElements\n")
+        np.savetxt(fh, np.column_stack([np.arange(1, len(tris) + 1), tris]), fmt="%d")
+        fh.write("End Elements\n")
+    return path
+
+
 def write_deck(directory, n_cells, h, body_cells, body_origin, scheme="NPC-FS", cfl=0.25,
                cel=100.0, steps=3, shapefun="LME", materials=None, analysis="One-Phase-Analysis",
-               gravity=None, fix_bottom=False, out_every=100, extra="", solver_props=""):
+               gravity=None, fix_bottom=False, out_every=100, extra="", solver_props="",
+               background="grid"):
     """A deck on a uniform GiD background of ``n_cells`` elements of side
-    ``h`` and a body of ``body_cells`` elements from ``body_origin``, both
-    written by :func:`write_grid_mesh`; ``fix_bottom`` holds the
-    nodes of the lowest plane (last axis 0) with a zero curve."""
+    ``h`` (``background='triangles'``: :func:`write_triangle_mesh`'s, 2D)
+    and a body of ``body_cells`` elements from ``body_origin``, written by
+    :func:`write_grid_mesh`; ``fix_bottom`` holds the nodes of the lowest
+    plane (last axis 0) with a zero curve."""
     import os
 
     dim = len(n_cells)
     os.makedirs(directory, exist_ok=True)
-    write_grid_mesh(os.path.join(directory, "bg.msh"), n_cells, h)
+    if background == "triangles":
+        write_triangle_mesh(os.path.join(directory, "bg.msh"), n_cells, h)
+    else:
+        write_grid_mesh(os.path.join(directory, "bg.msh"), n_cells, h)
     write_grid_mesh(os.path.join(directory, "body.msh"), body_cells, h, origin=body_origin)
     boundaries = ""
     if fix_bottom:
@@ -2977,6 +3032,11 @@ DECK_ROUTES = {
     "ugimp": (dict(shapefun="uGIMP"), "--FORMULATION-U", "windowed"),
     # aLME: the deck's ALMEParams, β started from β₀ and pulled back
     "alme": (dict(shapefun="aLME"), "--FORMULATION-U", "windowed"),
+    # an unstructured T3 background (a FEMesh): the scatter engine, FEM and
+    # meshfree LME over the node cloud
+    "unstructured_fem": (dict(background="triangles", shapefun="FEM"), "--FORMULATION-U",
+                         "scatter"),
+    "unstructured_lme": (dict(background="triangles"), "--FORMULATION-U", "scatter"),
 }
 DECK_ROUTE_STEPS = 3
 GOLDEN_DECKS = ("dem_bar", "dem_svk_bar", "dem_bar3d")
@@ -3023,6 +3083,8 @@ def phase_decks(device):
                                  "--FORMULATION-Upw": "upw"}[flag]
             cfg = make_step_config(setup, transfer=transfer)
             picked = cfg.transfer
+            if name.startswith("unstructured") != (type(setup.grid).__name__ == "FEMesh"):
+                raise PhaseError(f"decks {name}: background {type(setup.grid).__name__}")
             if picked != engine:
                 raise PhaseError(f"decks {name}: engine {picked}, the JAX rule's {engine}")
             damage = getattr(cfg, "damage", None)
@@ -3698,13 +3760,473 @@ def phase_scatter(device):
         seconds=time.perf_counter() - t0, ok=True)
 
 
+# ---------------------------------------------------------------------------
+# unstructured background meshes (shapefun/femesh.py) on the scatter engine
+# ---------------------------------------------------------------------------
+
+# scripts/bench_femesh.py's problem: a 192² perturbed T3 mesh (0.2·h, seed
+# 0), 3 particles a triangle, Neo-Hookean E 1e7, ν 0.3, ρ 1000, v = 0.01·N(0,1),
+# LME γ=3, dt = 0.25·(smallest edge)/c; then the same mesh with FEM
+FEMESH = dict(nx=192, perturb=0.2, seed=0, warm=2, steps=10)
+# the port's own 3D case (the JAX package has no 3D unstructured benchmark):
+# a perturbed H8 mesh of 32³ elements (0.2·h, seed 0), 2×2×2 Gauss-point
+# particles, FEM and LME; then its split into 6 tets a hex, one particle a
+# tet, FEM
+FEMESH3D = dict(n=32, perturb=0.2, seed=0, warm=1, steps=4)
+# Q4 on the scatter phase's unperturbed 128² node grid against the
+# structured grid on the windowed engine (same particles), and the T3 bar
+FEMESH_PARITY = dict(n_side=128, steps=8, bar_error=0.12, implicit_steps=3)
+FEMESH_SCATTER_STEPS = 2
+_KUHN = [[0, 1, 2, 6], [0, 2, 3, 6], [0, 3, 7, 6], [0, 7, 4, 6], [0, 4, 5, 6], [0, 5, 1, 6]]
+
+
+def femesh_mesh2d(nx, perturb, seed):
+    """scripts/bench_femesh.py's mesh: the unit square's (nx+1)² nodes, the
+    interior ones moved by up to perturb·h, two triangles a cell with
+    alternating diagonals.  Returns (coords, triangles, the generator)."""
+    rng = np.random.default_rng(seed)
+    xs = np.linspace(0.0, 1.0, nx + 1)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel()], -1)
+    interior = ((coords > 1e-9) & (coords < 1.0 - 1e-9)).all(-1)
+    coords[interior] += rng.uniform(-perturb, perturb, coords[interior].shape) / nx
+    ids = np.arange((nx + 1) ** 2).reshape(nx + 1, nx + 1)
+    i, j = np.meshgrid(np.arange(nx), np.arange(nx), indexing="ij")
+    a, b, c, d = ids[i, j], ids[i + 1, j], ids[i + 1, j + 1], ids[i, j + 1]
+    even = ((i + j) % 2 == 0)[..., None]
+    first = np.where(even, np.stack([a, b, c], -1), np.stack([a, b, d], -1))
+    second = np.where(even, np.stack([a, c, d], -1), np.stack([b, c, d], -1))
+    tris = np.stack([first, second], 2).reshape(-1, 3)  # bench_femesh.py's order
+    return coords, tris, rng
+
+
+def femesh_mesh3d(n, perturb, seed):
+    """A perturbed H8 mesh of the unit cube, n³ elements (GiD corner order),
+    and its generator."""
+    rng = np.random.default_rng(seed)
+    xs = np.linspace(0.0, 1.0, n + 1)
+    coords = np.stack([g.ravel() for g in np.meshgrid(xs, xs, xs, indexing="ij")], -1)
+    interior = ((coords > 1e-9) & (coords < 1.0 - 1e-9)).all(-1)
+    coords[interior] += rng.uniform(-perturb, perturb, coords[interior].shape) / n
+    ids = np.arange((n + 1) ** 3).reshape((n + 1,) * 3)
+    i, j, k = np.meshgrid(np.arange(n), np.arange(n), np.arange(n), indexing="ij")
+    hexes = np.stack([ids[i + a, j + b, k + c] for c in (0, 1)
+                      for (a, b) in ((0, 0), (1, 0), (1, 1), (0, 1))], -1).reshape(-1, 8)
+    return coords, hexes, rng
+
+
+def _simplex_particles(coords, conn):
+    """One particle a simplex at its centroid, V the simplex's volume."""
+    xe = coords[conn]
+    edges = xe[:, 1:] - xe[:, :1]
+    vol = np.abs(np.linalg.det(edges)) / (2.0 if coords.shape[1] == 2 else 6.0)
+    return xe.mean(axis=1), vol
+
+
+def _gauss_particles_h8(coords, hexes):
+    """2×2×2 Gauss points of each hexahedron and their volumes det J·1."""
+    from nlpartsol_tpu_torch.shapefun import femesh
+
+    g = 1.0 / np.sqrt(3.0)
+    xi = torch.as_tensor(np.stack(np.meshgrid(*[[-g, g]] * 3, indexing="ij"), -1)
+                         .reshape(-1, 3), dtype=torch.float64)
+    N, dN = femesh.shape_ref("H8", xi)
+    xe = torch.as_tensor(coords[hexes], dtype=torch.float64)
+    x = torch.einsum("ga,eai->egi", N, xe).reshape(-1, 3)
+    J = torch.einsum("eai,gaj->egij", xe, dN)
+    return x.numpy(), torch.linalg.det(J).reshape(-1).numpy()
+
+
+def _femesh_particles(x, vol, rng, device):
+    from nlpartsol_tpu_torch.models import materials as M
+    from nlpartsol_tpu_torch.types import make_particles
+
+    rho = 1000.0
+    p = make_particles(x.astype(np.float32), mass=(rho * vol).astype(np.float32),
+                       vol0=vol.astype(np.float32), device=device,
+                       v=(0.01 * rng.standard_normal(x.shape)).astype(np.float32))
+    mats = M.material_table([M.material(kind="Neo-Hookean-Wriggers", E=1e7, nu=0.3, rho0=rho)],
+                            device=device)
+    return p, mats
+
+
+def _femesh_config(mesh, shapefun):
+    from nlpartsol_tpu_torch.formulations.courant import courant_dt
+    from nlpartsol_tpu_torch.formulations.explicit import ExplicitConfig
+    from nlpartsol_tpu_torch.models import materials as M
+    from nlpartsol_tpu_torch.shapefun import lme
+
+    return ExplicitConfig(dt=courant_dt(0.25, mesh.spacing, float(np.sqrt(1e7 / 1000.0))),
+                          shapefun=shapefun, lme_params=lme.LMEParams(gamma=3.0),
+                          kinds=(M.NEO_HOOKEAN,), transfer="scatter")
+
+
+def _femesh_route(label, mesh, p, mats, cfg, warm, steps):
+    """``warm`` + ``steps`` explicit steps on the mesh through ``run`` (the
+    scatter engine): ms a step, nnz, lost 0, finite; the pattern's K, the
+    peak device memory, and where a step's time goes (the shape functions
+    — locate or the LME candidates and λ-Newton — and one P2G and G2P of a
+    d-vector over the pattern, CUDA events)."""
+    from nlpartsol_tpu_torch.formulations.common import make_engine, shapefun_eval
+    from nlpartsol_tpu_torch.formulations.explicit import run
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ft.reset_launch_counts()
+    q, d0 = run(p, mesh, mats, cfg, warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q, dg = run(q, mesh, mats, cfg, steps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    if any(ft.launch_counts.values()):
+        raise PhaseError(f"{label}: kernels launched on the scatter engine {ft.launch_counts}")
+    lost = int(d0["lost"].sum()) + int(dg["lost"].sum())
+    act = q.active
+    finite = all(bool(torch.isfinite(getattr(q, f)[act]).all()) for f in ("x", "v", "F", "stress"))
+    if lost or not finite:
+        raise PhaseError(f"{label}: lost {lost}, finite {finite}")
+    nnz = int(dg["nnz"].to(torch.int64).sum()) // steps
+    sf, _ = shapefun_eval(cfg, mesh, q)
+    K = int(sf["node_ids"].shape[1])
+    mask = sf["mask"] & q.active[:, None]
+    eng = make_engine(cfg, mesh, sf, None, mask)
+    vec = sf["dN"]
+    field = torch.zeros((mesh.n_nodes, p.dim), dtype=vec.dtype, device=vec.device)
+    where = dict(shape_functions_ms=cuda_ms(lambda: shapefun_eval(cfg, mesh, q), 3),
+                 p2g_vector_ms=cuda_ms(lambda: eng.p2g(vec), 3),
+                 g2p_vector_ms=cuda_ms(lambda: eng.g2p(sf["N"], field), 3))
+    del sf, mask, eng, vec
+    return dict(ms_per_step=ms, nnz_per_step=nnz, nnz_per_s=nnz / (ms * 1e-3), K=K,
+                particles=int(p.count), peak_device_gib=peak / 2**30, lost=lost, **where)
+
+
+def _mesh_summary(mesh, build_s):
+    return dict(kind=mesh.kind, nodes=mesh.n_nodes, elements=mesh.n_elems,
+                Emax=int(mesh.bin_elems.shape[1]), bins=list(mesh.bin_dims),
+                spacing=mesh.spacing, h_avg=mesh.h_avg, host_build_s=build_s)
+
+
+def _with_node_bins(mesh, cfg):
+    from nlpartsol_tpu_torch.shapefun import femesh, lme
+
+    t0 = time.perf_counter()
+    mesh = femesh.with_node_bins(mesh, lme.support_radius(cfg.lme_params, mesh.h_avg))
+    return mesh, time.perf_counter() - t0
+
+
+def phase_femesh(device):
+    """scripts/bench_femesh.py's problem on the card: meshfree LME over the
+    node cloud of the 192² perturbed T3 mesh, then FEM T3 on the same mesh."""
+    from nlpartsol_tpu_torch.shapefun import femesh
+
+    spec = FEMESH
+    t0 = time.perf_counter()
+    coords, tris, rng = femesh_mesh2d(spec["nx"], spec["perturb"], spec["seed"])
+    tb = time.perf_counter()
+    mesh = femesh.build_femesh(coords, tris, "T3", device=device)
+    build_s = time.perf_counter() - tb
+    xe = coords[tris]
+    bary = np.array([[0.5, 0.25, 0.25], [0.25, 0.5, 0.25], [0.25, 0.25, 0.5]])
+    x = np.einsum("ba,eai->ebi", bary, xe).reshape(-1, 2)
+    vol = np.repeat(_simplex_particles(coords, tris)[1] / 3.0, 3)
+    p, mats = _femesh_particles(x, vol, rng, device)
+    routes = {}
+    cfg = _femesh_config(mesh, "lme")
+    lme_mesh, bins_s = _with_node_bins(mesh, cfg)
+    routes["lme"] = _femesh_route("femesh:lme", lme_mesh, p, mats, cfg, spec["warm"],
+                                  spec["steps"])
+    routes["lme"].update(Bmax=int(lme_mesh.nbin_nodes.shape[1]), node_bins_s=bins_s,
+                         K_candidates=9 * int(lme_mesh.nbin_nodes.shape[1]))
+    del lme_mesh
+    routes["fem"] = _femesh_route("femesh:fem", mesh, p, mats, _femesh_config(mesh, "fem"),
+                                  spec["warm"], spec["steps"])
+    say(phase="femesh", mesh=_mesh_summary(mesh, build_s), particles=int(p.count),
+        warm=spec["warm"], steps=spec["steps"], routes=routes,
+        seconds=time.perf_counter() - t0, ok=True)
+
+
+def _lme_candidate_bytes(mesh, n_particles):
+    """Edges and bytes of the (Np, K) LME candidate arrays: rel (d float32),
+    the int32 ids and their int64 widening, the mask."""
+    K = 3 ** mesh.dim * int(mesh.nbin_nodes.shape[1])
+    edges = n_particles * K
+    return dict(K=K, edges=edges, rel_bytes=edges * mesh.dim * 4, ids_bytes=edges * 4,
+                ids_int64_bytes=edges * 8, mask_bytes=edges)
+
+
+def phase_femesh3d(device):
+    """The port's 3D unstructured case: FEM H8 and meshfree LME on the
+    perturbed 32³ H8 mesh (262,144 Gauss-point particles), then FEM T4 on its
+    6-tets-a-hex split (196,608 particles)."""
+    from nlpartsol_tpu_torch.shapefun import femesh
+
+    spec = FEMESH3D
+    t0 = time.perf_counter()
+    coords, hexes, rng = femesh_mesh3d(spec["n"], spec["perturb"], spec["seed"])
+    tb = time.perf_counter()
+    h8 = femesh.build_femesh(coords, hexes, "H8", device=device)
+    h8_build_s = time.perf_counter() - tb
+    x, vol = _gauss_particles_h8(coords, hexes)
+    p, mats = _femesh_particles(x, vol, rng, device)
+    routes = {}
+    routes["fem_h8"] = _femesh_route("femesh3d:fem_h8", h8, p, mats, _femesh_config(h8, "fem"),
+                                     spec["warm"], spec["steps"])
+    cfg = _femesh_config(h8, "lme")
+    lme_mesh, bins_s = _with_node_bins(h8, cfg)
+    need = _lme_candidate_bytes(lme_mesh, p.count)
+    say(phase="femesh3d:lme_candidates", **need,
+        device_total_bytes=torch.cuda.get_device_properties(0).total_memory)
+    routes["lme_h8"] = _femesh_route("femesh3d:lme_h8", lme_mesh, p, mats, cfg, spec["warm"],
+                                     spec["steps"])
+    routes["lme_h8"].update(Bmax=int(lme_mesh.nbin_nodes.shape[1]), node_bins_s=bins_s,
+                            candidate_bytes=need)
+    del lme_mesh, p
+    torch.cuda.empty_cache()
+    tets = np.concatenate([hexes[:, t] for t in _KUHN])
+    tb = time.perf_counter()
+    t4 = femesh.build_femesh(coords, tets, "T4", device=device)
+    t4_build_s = time.perf_counter() - tb
+    xt, volt = _simplex_particles(coords, tets)
+    pt, mats = _femesh_particles(xt, volt, rng, device)
+    routes["fem_t4"] = _femesh_route("femesh3d:fem_t4", t4, pt, mats, _femesh_config(t4, "fem"),
+                                     spec["warm"], spec["steps"])
+    say(phase="femesh3d", meshes=dict(h8=_mesh_summary(h8, h8_build_s),
+                                      t4=_mesh_summary(t4, t4_build_s)),
+        warm=spec["warm"], steps=spec["steps"], routes=routes,
+        seconds=time.perf_counter() - t0, ok=True)
+
+
+def tri_bar(nx=24, ny=3, L=1.0, H=0.15, perturb=0.2, seed=0):
+    """tests/test_femesh.py's bar: a perturbed T3 mesh of nx×ny cells with
+    alternating diagonals.  Returns (coords, triangles, node ids)."""
+    rng = np.random.default_rng(seed)
+    X, Y = np.meshgrid(np.linspace(0, L, nx + 1), np.linspace(0, H, ny + 1), indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel()], -1)
+    interior = ((coords[:, 0] > 1e-9) & (coords[:, 0] < L - 1e-9) & (coords[:, 1] > 1e-9)
+                & (coords[:, 1] < H - 1e-9))
+    coords[interior] += rng.uniform(-perturb, perturb, coords[interior].shape) * [L / nx, H / ny]
+    ids = np.arange((nx + 1) * (ny + 1)).reshape(nx + 1, ny + 1)
+    tris = []
+    for i in range(nx):
+        for j in range(ny):
+            a, b, c, d = ids[i, j], ids[i + 1, j], ids[i + 1, j + 1], ids[i, j + 1]
+            tris += [[a, b, c], [a, c, d]] if (i + j) % 2 == 0 else [[a, b, d], [b, c, d]]
+    return coords, np.asarray(tris), ids
+
+
+BAR_C = float(np.sqrt(1e7 / 1000.0))
+
+
+def build_tri_bar(device, shapefun="fem", V=0.01):
+    """tests/test_femesh.py's unstructured bar problem (ends held in x, y
+    held everywhere, 3 particles a triangle, Neo-Hookean E 1e7, ν 0, ρ 1000)
+    at v = V·sin(πx): (mesh, particles, materials, positions)."""
+    from nlpartsol_tpu_torch.models import materials as M
+    from nlpartsol_tpu_torch.shapefun import femesh, lme
+    from nlpartsol_tpu_torch.types import make_particles
+
+    coords, tris, ids = tri_bar()
+    dmask = np.zeros((len(coords), 2), bool)
+    dmask[ids[0, :], 0] = True
+    dmask[ids[-1, :], 0] = True
+    dmask[:, 1] = True
+    mesh = femesh.build_femesh(coords, tris, "T3", dirichlet_mask=dmask, device=device)
+    if shapefun == "lme":
+        mesh = femesh.with_node_bins(
+            mesh, lme.support_radius(lme.LMEParams(gamma=3.0), mesh.h_avg))
+    xe = coords[tris]
+    bary = np.array([[0.5, 0.25, 0.25], [0.25, 0.5, 0.25], [0.25, 0.25, 0.5]])
+    x = np.einsum("ba,eai->ebi", bary, xe).reshape(-1, 2)
+    vol = np.repeat(_simplex_particles(coords, tris)[1] / 3.0, 3)
+    v = np.stack([V * np.sin(np.pi * x[:, 0]), np.zeros(len(x))], -1)
+    p = make_particles(x.astype(np.float32), mass=(1000.0 * vol).astype(np.float32),
+                       vol0=vol.astype(np.float32), v=v.astype(np.float32), device=device)
+    mats = M.material_table([M.material(kind="Neo-Hookean-Wriggers", E=1e7, nu=0.0,
+                                        rho0=1000.0)], device=device)
+    return mesh, p, mats, x
+
+
+def _bar_quarter_period(device, shapefun):
+    """test_femesh.py's oracle: the bar to a quarter period at courant 0.2,
+    the displacement error over the amplitude."""
+    from nlpartsol_tpu_torch.formulations.courant import courant_dt
+    from nlpartsol_tpu_torch.formulations.explicit import run
+
+    mesh, p, mats, x = build_tri_bar(device, shapefun)
+    cfg = _femesh_config(mesh, shapefun).replace(dt=courant_dt(0.2, mesh.spacing, BAR_C),
+                                                 kinds=(3,))
+    omega = np.pi * BAR_C
+    n = int(round((np.pi / 2 / omega) / cfg.dt))
+    q, dg = run(p, mesh, mats, cfg, n)
+    _check_state(f"femesh_parity:bar_{shapefun}", q, dg)
+    u_ref = (0.01 / omega) * np.sin(np.pi * x[:, 0])
+    err = float(np.abs(q.dis[:, 0].cpu().numpy() - u_ref).max() / (0.01 / omega))
+    return dict(steps=n, error=err, ok=err < FEMESH_PARITY["bar_error"])
+
+
+def _bar_implicit(device):
+    """test_femesh.py:224: three Newmark-β steps of the bar at courant 1,
+    FEM, every one converged, nothing lost."""
+    from nlpartsol_tpu_torch.formulations.courant import courant_dt
+    from nlpartsol_tpu_torch.formulations.implicit import ImplicitConfig, implicit_step
+
+    mesh, p, mats, _ = build_tri_bar(device)
+    cfg = ImplicitConfig(dt=courant_dt(1.0, mesh.spacing, BAR_C), shapefun="fem", kinds=(3,),
+                         transfer="scatter", newton_tol=1e-6, newton_maxiter=20)
+    body = torch.zeros(2, device=device)
+    newton, ok = [], True
+    for _ in range(FEMESH_PARITY["implicit_steps"]):
+        p, dg = implicit_step(p, mesh, mats, cfg, body)
+        newton.append(int(dg["newton_iters"]))
+        ok = ok and bool(dg["converged"]) and int(dg["lost"]) == 0
+    ok = ok and bool(torch.isfinite(p.x).all()) and float(p.dis.abs().max()) < 0.01
+    return dict(newton=newton, ok=ok)
+
+
+def phase_femesh_parity(device):
+    """A Q4 FEMesh on the 128² node grid of ``scatter`` against the
+    structured grid on the windowed engine, 8 steps from the same particles,
+    by pid, FEM and LME (an axis-aligned Q4 is the structured bilinear basis;
+    h_avg equals h there, so β and the support radius are the grid's); then
+    the T3 bar's quarter-period oracle (FEM, LME) and its implicit steps."""
+    from nlpartsol_tpu_torch.formulations.explicit import run
+    from nlpartsol_tpu_torch.shapefun import femesh
+
+    spec = FEMESH_PARITY
+    t0 = time.perf_counter()
+    n = spec["n_side"]
+    grid, p, mats, cfg, h = build_problem(2, n, device)
+    coords = np.stack([a.ravel() for a in np.meshgrid(*[np.arange(n) * h] * 2, indexing="ij")],
+                      -1)
+    ids = np.arange(n * n).reshape(n, n)
+    i, j = np.meshgrid(np.arange(n - 1), np.arange(n - 1), indexing="ij")
+    quads = np.stack([ids[i, j], ids[i + 1, j], ids[i + 1, j + 1], ids[i, j + 1]],
+                     -1).reshape(-1, 4)
+    q4 = femesh.build_femesh(coords, quads, "Q4", device=device)
+    rows = {}
+    for shapefun in ("fem", "lme"):
+        c = cfg.replace(shapefun=shapefun, rebin_every=1)
+        mesh = _with_node_bins(q4, c)[0] if shapefun == "lme" else q4
+        pw, dw = run(p, grid, mats, c.replace(transfer="windowed"), spec["steps"])
+        ps, ds = run(p, mesh, mats, c.replace(transfer="scatter", active_box=None),
+                     spec["steps"])
+        _check_state(f"femesh_parity:{shapefun}:windowed", pw, dw)
+        _check_state(f"femesh_parity:{shapefun}:femesh", ps, ds)
+        rel_dx, rel_dv = _parity(ps, pw, h, f"femesh_parity:{shapefun}")[:2]
+        rows[shapefun] = dict(rel_dx=rel_dx, rel_dv=rel_dv, h_avg_over_h=mesh.h_avg / h,
+                              nnz_windowed=int(dw["nnz"][-1]), nnz_femesh=int(ds["nnz"][-1]),
+                              ok=rel_dx < 1e-3 and rel_dv < 1e-2)
+    for shapefun in ("fem", "lme"):
+        rows[f"bar_{shapefun}"] = _bar_quarter_period(device, shapefun)
+    rows["bar_implicit"] = _bar_implicit(device)
+    ok = all(r["ok"] for r in rows.values())
+    say(phase="femesh_parity", grid=f"{n}x{n}", steps=spec["steps"], routes=rows,
+        seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise PhaseError(f"femesh_parity: {rows}")
+
+
+def _bar_mixture(p, mats_device):
+    """The bar's particles as a soil-water mixture (scripts/bench_upw.py's
+    fluid, K_f 2.2e7): (particles, materials, mixtures)."""
+    from nlpartsol_tpu_torch.formulations import upw
+    from nlpartsol_tpu_torch.models import materials as M
+
+    mats = M.material_table([M.material(kind="Neo-Hookean-Wriggers", E=1e7, nu=0.3, rho0=2700.0),
+                             M.material(kind="Newtonian-Fluid-Compressible", rho0=1000.0,
+                                        compressibility=2.2e7)], device=mats_device)
+    mix = upw.make_mixture_table([dict(soil_id=0, water_id=1, phi_s0=0.6, phi_f0=0.4,
+                                       permeability=1e-5)], device=mats_device)
+    return upw.init_mixture_state(p, mats, mix), mats, mix
+
+
+def phase_femesh_scatter(device):
+    """Every step that takes a FEMesh, on the T3 bar (FEM) through the
+    scatter engine on the card: Forward-Euler, Generalized-α, quasi-static,
+    u-pw explicit and implicit, u-p and DEM; finite, nothing lost, every
+    Newton loop converged (or, for u-pw, ended by its tolerance or stall
+    rule)."""
+    from nlpartsol_tpu_torch.formulations import dem, integrators, up, upw
+    from nlpartsol_tpu_torch.formulations.courant import courant_dt
+    from nlpartsol_tpu_torch.formulations.implicit import ImplicitConfig, implicit_step
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+
+    t0 = time.perf_counter()
+    ft.reset_launch_counts()
+    # the bar at test_dem.py's finite amplitude: at 0.01 the DEM residual
+    # sits at the float32 floor and its Newton loop stalls unconverged
+    mesh, p0, mats, _ = build_tri_bar(device, V=0.05)
+    cfg = _femesh_config(mesh, "fem").replace(dt=courant_dt(0.2, mesh.spacing, BAR_C),
+                                              kinds=(3,))
+    body = torch.zeros(2, device=device)
+    c_mix = float(np.sqrt((2.2e7 / 0.4) / (0.6 * 2700.0 + 0.4 * 1000.0)))
+    pm, mm, mix = _bar_mixture(p0, device)
+    upw_implicit = upw.UpwImplicitConfig(dt=2.0 * mesh.spacing / c_mix, shapefun="fem",
+                                         kinds=(3,), transfer="scatter")
+    steps = {
+        "forward_euler": lambda q: integrators.forward_euler_step(
+            q, mesh, mats, cfg.replace(scheme="FE"), body),
+        "generalized_alpha": lambda q: integrators.generalized_alpha_step(
+            q, mesh, mats, cfg.replace(scheme="Generalized-alpha"), body, 0.8),
+        "quasi_static": lambda q: implicit_step(
+            q, mesh, mats, ImplicitConfig(dt=cfg.dt, shapefun="fem", kinds=(3,),
+                                          transfer="scatter", quasi_static=True,
+                                          newton_tol=1e-6, newton_maxiter=20),
+            torch.tensor([-1e3, 0.0], device=device)),
+        "upw_explicit": lambda q: upw.upw_step(
+            q, mesh, mm, mix, upw.UpwConfig(dt=0.2 * mesh.spacing / c_mix, shapefun="fem",
+                                            kinds=(3,), transfer="scatter"), body),
+        "upw_implicit": lambda q: upw.upw_newmark_step(q, mesh, mm, mix, upw_implicit, body),
+        "up": lambda q: up.up_step(
+            q, mesh, mats, up.UpConfig(dt=courant_dt(2.0, mesh.spacing, BAR_C), shapefun="fem",
+                                       kinds=(3,), transfer="scatter"), body),
+        "dem": lambda q: dem.dem_step(
+            q, mesh, mats, dem.DEMConfig(dt=courant_dt(1.0, mesh.spacing, BAR_C),
+                                         shapefun="fem", kinds=(3,), transfer="scatter"), body),
+    }
+    rows = {}
+    for name, step in steps.items():
+        q = pm if name.startswith("upw") else p0
+        ts = time.perf_counter()
+        newton, converged, ended, lost = [], True, True, 0
+        for _ in range(FEMESH_SCATTER_STEPS):
+            q, dg = step(q)
+            lost += int(dg["lost"])
+            if "newton_iters" in dg:
+                newton.append(int(dg["newton_iters"]))
+                converged = converged and bool(dg["converged"])
+                # u-pw: the loop ends by its tolerance or its stall rule, as
+                # in the u-pw phases (``converged`` reported)
+                ended = ended and newton[-1] < upw_implicit.newton_maxiter and np.isfinite(
+                    float(dg["newton_residual"]))
+        act = q.active
+        finite = all(bool(torch.isfinite(getattr(q, f)[act]).all())
+                     for f in ("x", "v", "F", "stress", "pw"))
+        moved = float((q.x - p0.x).abs().max())
+        settled = ended if name == "upw_implicit" else converged
+        rows[name] = dict(lost=lost, finite=finite, newton=newton, converged=converged,
+                          moved=moved, seconds=time.perf_counter() - ts,
+                          ok=lost == 0 and finite and settled and moved > 0)
+    if any(ft.launch_counts.values()):
+        raise PhaseError(f"femesh_scatter: kernels launched {ft.launch_counts}")
+    ok = all(r["ok"] for r in rows.values())
+    say(phase="femesh_scatter", mesh="T3 bar 24x3", steps=FEMESH_SCATTER_STEPS, routes=rows,
+        seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise PhaseError(f"femesh_scatter: {rows}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="kernels,main_path,parity,roofline,implicit,"
                     "implicit_parity,kernels3d,main_path3d,parity3d,roofline3d,implicit3d,"
                     "implicit_parity3d,upw,upw_parity,upw_implicit,upw_implicit_parity,up,"
                     "up_parity,dem,dem_parity,models_fn,models,models_parity,models3d,deck,decks,"
-                    "fracture,fracture3d,fracture_implicit,shapefuns,scatter,probes,large3d,large",
+                    "fracture,fracture3d,fracture_implicit,shapefuns,scatter,femesh,femesh3d,"
+                    "femesh_parity,femesh_scatter,probes,large3d,large",
                     help="comma-separated phases to run after device and build")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -3803,6 +4325,10 @@ def main():
     if "scatter" in phases:
         phase_scatter(device)
         torch.cuda.empty_cache()
+    for name in ("femesh", "femesh3d", "femesh_parity", "femesh_scatter"):
+        if name in phases:
+            globals()["phase_" + name](device)
+            torch.cuda.empty_cache()
     if "probes" in phases:
         rows += phase_probes(device)
     # the large legs are optional: only with most of the time limit ahead

@@ -21,6 +21,7 @@ from .formulations.upw import MixtureTable, UpwConfig, UpwImplicitConfig
 from .models.materials import MaterialTable
 from .ops.windowed import ActiveBox
 from .shapefun.alme import ALMEParams
+from .shapefun.femesh import FEMesh
 from .shapefun.lme import LMEParams
 from .types import Grid, Particles
 
@@ -93,6 +94,32 @@ def grid_from_numpy(
         valid_lo=_bound(valid_lo),
         valid_hi=_bound(valid_hi),
     )
+
+
+# the FEMesh fields that are host values (kind, the bin grids' geometry, the
+# length scales), not arrays
+_FEMESH_STATIC = ("kind", "bin_origin", "bin_spacing", "bin_dims", "spacing", "h_avg",
+                  "nbin_origin", "nbin_spacing", "nbin_dims")
+
+
+def femesh_from_numpy(fields: dict, device="cuda") -> FEMesh:
+    """The port's FEMesh from every field of the JAX package's: the arrays
+    as numpy (dtypes kept), the static fields (kind, bin grids, spacing,
+    h_avg) as host values; None stays None."""
+    names = _fields(FEMesh)
+    missing = [n for n in names if n not in fields]
+    extra = [n for n in fields if n not in names]
+    if missing or extra:
+        raise ValueError(f"FEMesh: missing fields {missing}, unknown fields {extra}")
+
+    def one(name, v):
+        if v is None or name == "kind":
+            return v
+        if name in _FEMESH_STATIC:
+            return tuple(v) if isinstance(v, (tuple, list)) else float(v)
+        return torch.as_tensor(np.array(v), device=device)
+
+    return FEMesh(**{n: one(n, fields[n]) for n in names})
 
 
 def _config_from_fields(cls, fields: dict, waiting: dict):

@@ -25,8 +25,10 @@ cells).  uGIMP decks are checked once for l_p ≤ h; aLME decks take their
 ``ALMEParams`` from the deck's shape-function block and start from β₀ where
 the state carries none (the JAX driver leaves ``alme_params`` unset).
 
-Not ported yet (``NotImplementedError`` naming the item of ROADMAP.md queue
-1): unstructured meshes (item 13, refused by the builder).
+An unstructured background (a ``FEMesh`` from a non-Cartesian GiD mesh)
+has no slot layout: every route runs on the scatter engine there, as in the
+JAX driver, with dt from the mesh's smallest element edge, no default box,
+and the particles no element holds counted as lost.
 """
 
 from __future__ import annotations
@@ -52,6 +54,8 @@ from .ops import windowed
 from .shapefun import alme as alme_mod
 from .shapefun import gimp as gimp_mod
 from .shapefun import lme as lme_mod
+from .shapefun.femesh import FEMesh
+from .types import Grid
 from .utils import profiling
 
 EXPLICIT_SCHEMES = {"NPC-FS", "Verlet"}
@@ -71,6 +75,8 @@ def make_step_config(setup: SimulationSetup, transfer: str = "scatter", active_b
     ``transfer``: 'auto' (the fused kernels where eligible, else the
     windowed engine), 'fused', 'windowed' or 'scatter'."""
     sp = setup.solver
+    if isinstance(setup.grid, FEMesh):
+        transfer = "scatter"  # no slot layout on unstructured meshes
     if transfer == "auto":
         # fused kernels whenever the step is eligible (the check below
         # falls back to the windowed engine otherwise)
@@ -298,6 +304,10 @@ def run_simulation(
         resume_state = load_checkpoint(resume, device=device)
         setup.particles = resume_state[0]
 
+    if isinstance(setup.grid, FEMesh):
+        # unstructured T3/Q4/T4/H8 background: no cell-window slot layout,
+        # the transfers go through the scatter engine
+        transfer = "scatter"
     if transfer == "auto":
         transfer = "fused"
     if transfer in ("windowed", "fused") and active_box is None:
@@ -409,12 +419,14 @@ def run_simulation(
         lost = torch.stack([o["lost"] for o in outs]).cpu().numpy()
         if check_lost and lost.max() > 0:
             i_bad = i_first + int(np.argmax(lost > 0))
+            where = ("left every element of the unstructured mesh"
+                     if isinstance(grid, FEMesh) else
+                     "dropped by the transfer ActiveBox (overflowed cell capacity or "
+                     "left the box); re-run with a larger box/capacity "
+                     "(windowed.required_capacity)")
             raise RuntimeError(
-                f"step {i_bad}: {int(lost.max())} active particles dropped "
-                f"by the transfer ActiveBox (overflowed cell capacity or "
-                f"left the box). Re-run with a larger box/capacity "
-                f"(windowed.required_capacity) or check_lost=False if "
-                f"particles legitimately exit the domain."
+                f"step {i_bad}: {int(lost.max())} active particles {where}. "
+                f"Pass check_lost=False if particles legitimately exit the domain."
             )
         ke = torch.stack([o["kinetic_energy"] for o in outs]).cpu().numpy()
         se = torch.stack([o["strain_energy"] for o in outs]).cpu().numpy()
@@ -527,12 +539,14 @@ def run_simulation(
                            else {}),
                     )
                     # nodal mesh + reactions beside the particle cloud, as
-                    # the reference writes them (WriteVtk.c:53-100)
-                    vtk.write_grid_vtk(
-                        os.path.join(setup.out_dir, f"nodes_{last:06d}.vtk"),
-                        grid,
-                        point_data={"REACTIONS": react},
-                    )
+                    # the reference writes them (WriteVtk.c:53-100); a
+                    # structured grid only, as in the JAX driver
+                    if isinstance(grid, Grid):
+                        vtk.write_grid_vtk(
+                            os.path.join(setup.out_dir, f"nodes_{last:06d}.vtk"),
+                            grid,
+                            point_data={"REACTIONS": react},
+                        )
             for eidx, (ev, rec) in enumerate(zip(csv_events, recorders)):
                 due = (
                     ev["i_start"] <= last <= ev["i_end"]

@@ -1,13 +1,17 @@
 """Shared step machinery: shape-function dispatch + transfer-engine build
-(counterpart of ``nlpartsol_tpu/formulations/common.py``)."""
+(counterpart of ``nlpartsol_tpu/formulations/common.py``).
+
+A step's background is a structured :class:`~..types.Grid` or an
+unstructured :class:`~..shapefun.femesh.FEMesh`; a mesh has no slot layout,
+so it runs on the scatter engine only (:func:`check_background`)."""
 
 from __future__ import annotations
 
 import torch
 
 from ..models import materials as M
-from ..ops import transfer
-from ..shapefun import alme, fem, gimp, lme
+from ..ops import transfer, windowed
+from ..shapefun import alme, fem, femesh, gimp, lme
 from ..types import Grid
 
 # The kinds whose stress the implicit, u-p, u-pw and DEM steps take: their
@@ -17,14 +21,36 @@ _HYPERELASTIC_KINDS = (M.SOLID_RIGID, M.SAINT_VENANT_KIRCHHOFF, M.NEO_HOOKEAN)
 _KIND_LABEL = {code: name for name, code in M.KIND_NAMES.items()}
 
 
+def check_background(cfg, grid):
+    """A FEMesh takes ``transfer='scatter'`` only: the other engines need a
+    Grid's cells (``windowed.require_grid``); anything that is neither a
+    Grid nor a FEMesh is refused."""
+    if not isinstance(grid, (Grid, femesh.FEMesh)):
+        raise TypeError(f"the background must be a Grid or a FEMesh, not {type(grid).__name__}")
+    if cfg.transfer != "scatter":
+        windowed.require_grid(grid, f"transfer '{cfg.transfer}'")
+
+
+def binned_refused():
+    """The error of ``transfer='binned'``: the JAX package's bin-pair engine
+    is on the do-not-port list (ROADMAP.md queue 2)."""
+    return NotImplementedError(
+        "transfer 'binned' (the JAX package's bin-pair engine) is on the do-not-port "
+        "list, ROADMAP.md queue 2: use transfer='scatter' on a FEMesh")
+
+
 def shapefun_eval(cfg, grid, p):
     """Evaluate the configured shape functions.  Returns (sf dict,
-    offsets (K, d) static numpy array)."""
-    if not isinstance(grid, Grid):
-        raise NotImplementedError(
-            "unstructured background meshes are not ported yet: ROADMAP.md "
-            "queue 1, 'Other shape functions, engines and integrators'"
-        )
+    offsets (K, d) static numpy array, None on a FEMesh)."""
+    check_background(cfg, grid)
+    if isinstance(grid, femesh.FEMesh):
+        # isoparametric elements or meshfree LME over the node cloud; the
+        # scatter engine routes P2G/G2P through the node_ids pattern
+        if cfg.shapefun == "fem":
+            return femesh.evaluate(grid, p.x), None
+        if cfg.shapefun == "lme":
+            return femesh.evaluate_lme(grid, p.x, p.lme_lambda, cfg.lme_params), None
+        raise ValueError("unstructured background meshes support shapefun='fem' or 'lme'")
     check_shapefun(cfg)
     if cfg.shapefun == "lme":
         sf = lme.evaluate(grid, p.x, p.lme_lambda, cfg.lme_params)
@@ -82,16 +108,14 @@ def make_engine(cfg, grid, sf, offsets, mask):
     if cfg.transfer == "scatter":
         return transfer.ScatterEngine(grid, sf["node_ids"], mask)
     if cfg.transfer == "binned":
-        raise NotImplementedError(
-            "transfer 'binned' is not ported yet: ROADMAP.md queue 1, item 13, "
-            "'Other shape functions, engines and integrators'"
-        )
+        raise binned_refused()
     raise ValueError(f"unknown transfer {cfg.transfer}")
 
 
 def found_lost(sf, act):
-    """Particles a background mesh could not locate (``found`` flag) —
-    counted into the ``lost`` diagnostic so loss is loud, never silent."""
+    """Particles a FEMesh could not locate (``found`` flag) — counted into
+    the ``lost`` diagnostic, so run_simulation's loss check fires instead
+    of the particles freezing silently."""
     if sf.get("found") is not None:
         return torch.sum(act & ~sf["found"], dtype=torch.int32)
     return torch.zeros((), dtype=torch.int32, device=act.device)

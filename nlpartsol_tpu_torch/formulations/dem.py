@@ -43,8 +43,12 @@ iteration; the 3 of the gathers: r₀, and ∇dU and ∇(V − Vₙ) at the end.
 Not ported yet (each raises ``NotImplementedError`` naming its item of
 ROADMAP.md queue 1): material kinds other than Neo-Hookean,
 Saint-Venant-Kirchhoff and Solid-Rigid (item 12b),
-``axis_name``/``rebin_mode='none'`` (item 15) and ``transfer='binned'``
-(item 13).  uGIMP and aLME run on the scatter and windowed engines (as in
+``axis_name``/``rebin_mode='none'`` (item 15).
+On an unstructured ``FEMesh`` (shapefun/femesh.py) the step runs on the
+scatter engine only; 'windowed' and 'fused' raise ``ValueError``.
+``transfer='binned'`` is on the do-not-port list (ROADMAP.md queue 2) and
+raises ``NotImplementedError``.
+uGIMP and aLME run on the scatter and windowed engines (as in
 the JAX package, β is not pulled back here).
 """
 
@@ -66,8 +70,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import alme, lme
 from ..types import Grid, Particles
 from . import kinematics as kin
-from .common import (check_hyperelastic_kinds, check_shapefun, found_lost, make_engine,
-                     shapefun_eval)
+from .common import (binned_refused, check_background, check_hyperelastic_kinds,
+                     check_shapefun, found_lost, make_engine, shapefun_eval)
 from .explicit import _bin_to_slots, to_slot_layout
 from .implicit import _det_clamped
 
@@ -104,10 +108,12 @@ class DEMConfig:
         return dataclasses.replace(self, **changes)
 
 
-def _check_supported(cfg: DEMConfig, p: Particles):
+def _check_supported(cfg: DEMConfig, p: Particles, grid):
     def later(what, item, where):
         return NotImplementedError(
             f"{what} is not ported yet: ROADMAP.md queue 1, item {item}, '{where}'")
+
+    check_background(cfg, grid)
 
     if p.dim not in (2, 3):
         raise ValueError(f"DEM steps run in 2D and 3D, not {p.dim}D")
@@ -120,7 +126,7 @@ def _check_supported(cfg: DEMConfig, p: Particles):
     check_hyperelastic_kinds(cfg, "DEM")
     check_shapefun(cfg)
     if cfg.transfer == "binned":
-        raise later("transfer 'binned'", 13, "Other shape functions, engines and integrators")
+        raise binned_refused()
     if cfg.transfer not in ("scatter", "windowed", "fused"):
         raise ValueError(f"unknown transfer {cfg.transfer}")
     if cfg.transfer != "scatter" and cfg.active_box is None:
@@ -268,7 +274,7 @@ def dem_step(p: Particles, grid: Grid, mats: MaterialTable, cfg: DEMConfig, body
     diagnostics): ``nnz``, ``lost``, ``newton_iters``, ``cg_iters``,
     ``newton_residual``, ``converged``, ``kinetic_energy``,
     ``strain_energy``, ``grid_energy_increment``, ``grid_kinetic_energy``."""
-    _check_supported(cfg, p)
+    _check_supported(cfg, p, grid)
     if cfg.transfer == "fused":
         return _dem_step_fused(p, grid, mats, cfg, body_accel)
     d = p.dim
@@ -419,7 +425,7 @@ def run(p: Particles, grid: Grid, mats: MaterialTable, cfg: DEMConfig, n_steps: 
     """Time loop (binned once by ``to_slot_layout`` on the windowed and fused
     engines).  Returns (particles, dict(kinetic_energy, strain_energy,
     newton_iters), one entry a step)."""
-    _check_supported(cfg, p)
+    _check_supported(cfg, p, grid)
     if body_accel is None:
         body_accel = torch.zeros((p.dim,), dtype=p.x.dtype, device=p.x.device)
     if cfg.transfer in ("windowed", "fused"):

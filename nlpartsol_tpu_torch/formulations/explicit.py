@@ -32,9 +32,12 @@ constitutive update and the internal forces; the scatter engine refuses
 them (``ValueError``, as in the JAX package).
 
 Not ported yet (each raises ``NotImplementedError`` naming its slice of
-ROADMAP.md queue 1): ``halo``/``axis_name``/``rebin_mode='none'`` (item 15)
-and ``transfer='binned'`` (item 13).  The schemes 'FE' and
-'Generalized-alpha' are formulations/integrators.py's steps.
+ROADMAP.md queue 1): ``halo``/``axis_name``/``rebin_mode='none'`` (item 15).
+On an unstructured ``FEMesh`` (shapefun/femesh.py) the step runs on the
+scatter engine only; 'windowed' and 'fused' raise ``ValueError``.
+``transfer='binned'`` is on the do-not-port list (ROADMAP.md queue 2) and
+raises ``NotImplementedError``.  The schemes 'FE' and 'Generalized-alpha'
+are formulations/integrators.py's steps.
 Every material kind runs, on every engine (item 12a).  ``shapefun='fem'``,
 ``'gimp'`` and ``'alme'`` run on the windowed and scatter engines; the fused
 kernels compute LME only and refuse them with ``ValueError``.
@@ -57,7 +60,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import alme, lme
 from ..types import Grid, Particles
 from . import kinematics as kin
-from .common import check_shapefun, found_lost, make_engine, shapefun_eval
+from .common import (binned_refused, check_background, check_shapefun, found_lost,
+                     make_engine, shapefun_eval)
 
 Tensor = torch.Tensor
 
@@ -107,10 +111,12 @@ class ExplicitConfig:
         return dataclasses.replace(self, **changes)
 
 
-def _check_supported(cfg: ExplicitConfig, p: Particles):
+def _check_supported(cfg: ExplicitConfig, p: Particles, grid):
     def later(what, item, where):
         return NotImplementedError(
             f"{what} is not ported yet: ROADMAP.md queue 1, item {item}, '{where}'")
+
+    check_background(cfg, grid)
 
     if p.dim not in (2, 3):
         raise ValueError(f"explicit steps run in 2D and 3D, not {p.dim}D")
@@ -129,8 +135,7 @@ def _check_supported(cfg: ExplicitConfig, p: Particles):
             "(driver.run_simulation dispatches on the scheme)")
     check_shapefun(cfg)
     if cfg.transfer == "binned":
-        raise later(f"transfer '{cfg.transfer}'", 13,
-                    "Other shape functions, engines and integrators")
+        raise binned_refused()
     if cfg.transfer not in ("windowed", "fused", "scatter"):
         raise ValueError(f"unknown transfer {cfg.transfer}")
     if cfg.transfer == "scatter":
@@ -256,7 +261,7 @@ def explicit_step(
     rebin: Optional[bool] = None,  # re-bin this step (fused, rebin_every > 1)
 ):
     """One explicit step.  Returns (particles_{n+1}, diagnostics)."""
-    _check_supported(cfg, p)
+    _check_supported(cfg, p, grid)
     if cfg.transfer == "fused":
         return _explicit_step_fused(
             p, grid, mats, cfg, body_accel, traction, traction_area, rebin
@@ -504,7 +509,7 @@ def run(
     With the fused engine, ``rebin_mode='local'`` and ``rebin_every = k > 1``
     dividing ``n_steps``, the loop is k-periodic: k−1 plain steps, then one
     step that re-bins."""
-    _check_supported(cfg, p)
+    _check_supported(cfg, p, grid)
     if body_accel is None:
         body_accel = torch.zeros((p.dim,), dtype=p.x.dtype, device=p.x.device)
     if cfg.transfer != "scatter":

@@ -45,7 +45,11 @@ no kernel.
 Not ported yet (each raises ``NotImplementedError`` naming its item of
 ROADMAP.md queue 1): material kinds other than Neo-Hookean,
 Saint-Venant-Kirchhoff and Solid-Rigid (item 12b), ``halo``/``axis_name``
-and ``rebin_mode='none'`` (item 15) and ``transfer='binned'`` (item 13).
+and ``rebin_mode='none'`` (item 15).
+On an unstructured ``FEMesh`` (shapefun/femesh.py) the step runs on the
+scatter engine only; 'windowed' and 'fused' raise ``ValueError``.
+``transfer='binned'`` is on the do-not-port list (ROADMAP.md queue 2) and
+raises ``NotImplementedError``.
 ``shapefun='fem'``, ``'gimp'`` and ``'alme'`` run on the windowed and
 scatter engines; the fused kernels compute LME only and refuse them with
 ``ValueError``.
@@ -68,8 +72,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import alme, lme
 from ..types import Grid, Particles
 from . import kinematics as kin
-from .common import (check_hyperelastic_kinds, check_shapefun, found_lost, make_engine,
-                     shapefun_eval)
+from .common import (binned_refused, check_background, check_hyperelastic_kinds,
+                     check_shapefun, found_lost, make_engine, shapefun_eval)
 from .explicit import _bin_to_slots, to_slot_layout
 
 Tensor = torch.Tensor
@@ -146,10 +150,12 @@ class ImplicitConfig:
         return dataclasses.replace(self, **changes)
 
 
-def _check_supported(cfg: ImplicitConfig, p: Particles):
+def _check_supported(cfg: ImplicitConfig, p: Particles, grid):
     def later(what, item, where):
         return NotImplementedError(
             f"{what} is not ported yet: ROADMAP.md queue 1, item {item}, '{where}'")
+
+    check_background(cfg, grid)
 
     if p.dim not in (2, 3):
         raise ValueError(f"implicit steps run in 2D and 3D, not {p.dim}D")
@@ -164,8 +170,7 @@ def _check_supported(cfg: ImplicitConfig, p: Particles):
     check_hyperelastic_kinds(cfg, "implicit")
     check_shapefun(cfg)
     if cfg.transfer == "binned":
-        raise later(f"transfer '{cfg.transfer}'", 13,
-                    "Other shape functions, engines and integrators")
+        raise binned_refused()
     if cfg.transfer not in ("windowed", "fused", "scatter"):
         raise ValueError(f"unknown transfer {cfg.transfer}")
     if cfg.transfer == "scatter":
@@ -360,7 +365,7 @@ def implicit_step(
     diagnostics): ``nnz``, ``newton_iters`` and ``cg_iters`` (ints),
     ``newton_residual``, ``converged`` (device tensors), ``lost``,
     ``reactions``."""
-    _check_supported(cfg, p)
+    _check_supported(cfg, p, grid)
     if cfg.transfer == "fused":
         return _implicit_step_fused(p, grid, mats, cfg, body_accel, traction, traction_area)
     d = p.dim
@@ -568,7 +573,7 @@ def assemble_tangent(
     engine only.  Returns (A, dict(free, m_nodes, binning))."""
     if cfg.transfer != "windowed":
         raise ValueError("assemble_tangent requires cfg.transfer='windowed'")
-    _check_supported(cfg, p)
+    _check_supported(cfg, p, grid)
     nm = newmark_parameters(cfg.beta, cfg.gamma, cfg.dt)
     binning = windowed.bin_particles(grid, cfg.active_box, p.x, p.active)
     p = windowed.permute_to_slots(p, binning)
@@ -599,7 +604,7 @@ def run(
 on the slot-layout engines).
     Returns (particles, dict(newton_iters (n_steps,) int32, newton_residual
     (n_steps,)))."""
-    _check_supported(cfg, p)
+    _check_supported(cfg, p, grid)
     if body_accel is None:
         body_accel = torch.zeros((p.dim,), dtype=p.x.dtype, device=p.x.device)
     if cfg.transfer != "scatter":

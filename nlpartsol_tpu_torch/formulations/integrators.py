@@ -14,8 +14,9 @@ Counterpart of ``nlpartsol_tpu/formulations/integrators.py``:
 Both run on the windowed engine, as in the JAX package (its driver routes
 them there: each step bins its particles to slots at the start, so they
 take any particle order), or on the scatter engine (particle order, no
-slot layout); the fused kernels have no path for these schemes
-(``ValueError``, as ``common.make_engine`` says).
+slot layout; the only engine on an unstructured ``FEMesh``); the fused
+kernels have no path for these schemes (``ValueError``, as
+``common.make_engine`` says).
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ from ..ops import windowed
 from ..ops.sparse import nnz as count_nnz
 from ..types import Grid, Particles
 from . import kinematics as kin
-from .common import check_shapefun, found_lost, make_engine, shapefun_eval
+from .common import (binned_refused, check_background, check_shapefun, found_lost,
+                     make_engine, shapefun_eval)
 from .explicit import ExplicitConfig
 
 Tensor = torch.Tensor
@@ -45,10 +47,12 @@ def generalized_alpha_parameters(rb: float):
     return alpha, beta, gamma
 
 
-def _check_supported(cfg: ExplicitConfig, p: Particles):
+def _check_supported(cfg: ExplicitConfig, p: Particles, grid):
     def later(what, item, where):
         return NotImplementedError(
             f"{what} is not ported yet: ROADMAP.md queue 1, item {item}, '{where}'")
+
+    check_background(cfg, grid)
 
     if p.dim not in (2, 3):
         raise ValueError(f"explicit integrators run in 2D and 3D, not {p.dim}D")
@@ -58,8 +62,7 @@ def _check_supported(cfg: ExplicitConfig, p: Particles):
         raise ValueError("Forward-Euler / Generalized-alpha have no fracture hooks")
     check_shapefun(cfg)
     if cfg.transfer == "binned":
-        raise later(f"transfer '{cfg.transfer}' for scheme '{cfg.scheme}'", 13,
-                    "Other shape functions, engines and integrators")
+        raise binned_refused()
     if cfg.active_box is None and cfg.transfer == "windowed":
         raise ValueError("windowed transfer requires cfg.active_box")
 
@@ -67,7 +70,7 @@ def _check_supported(cfg: ExplicitConfig, p: Particles):
 def _begin(p, grid, cfg):
     """Bin to slots (windowed engine), evaluate the basis, build the engine
     and the lumped mass (the part both integrators share)."""
-    _check_supported(cfg, p)
+    _check_supported(cfg, p, grid)
     lost = torch.zeros((), dtype=torch.int32, device=p.x.device)
     if cfg.transfer == "windowed":
         binning = windowed.bin_particles(grid, cfg.active_box, p.x, p.active)

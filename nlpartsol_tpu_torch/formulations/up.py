@@ -42,8 +42,12 @@ iterate.)  K = n + L/20 when no solve runs all its cycles.
 Not ported yet (each raises ``NotImplementedError`` naming its item of
 ROADMAP.md queue 1): material kinds other than Neo-Hookean,
 Saint-Venant-Kirchhoff and Solid-Rigid (item 12b),
-``axis_name``/``rebin_mode='none'`` (item 15) and ``transfer='binned'``
-(item 13).  uGIMP and aLME run on the scatter and windowed engines (aLME's
+``axis_name``/``rebin_mode='none'`` (item 15).
+On an unstructured ``FEMesh`` (shapefun/femesh.py) the step runs on the
+scatter engine only; 'windowed' and 'fused' raise ``ValueError``.
+``transfer='binned'`` is on the do-not-port list (ROADMAP.md queue 2) and
+raises ``NotImplementedError``.
+uGIMP and aLME run on the scatter and windowed engines (aLME's
 β pulled back by ΔF each step).  The step is
 dimension-generic like the JAX package's; the tests and ``chip_smoke.py``
 hold it in 2D.
@@ -64,8 +68,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import alme, lme
 from ..types import Grid, Particles
 from . import kinematics as kin
-from .common import (check_hyperelastic_kinds, check_shapefun, found_lost, make_engine,
-                     shapefun_eval)
+from .common import (binned_refused, check_background, check_hyperelastic_kinds,
+                     check_shapefun, found_lost, make_engine, shapefun_eval)
 from .explicit import _bin_to_slots, to_slot_layout
 from .implicit import (_advance, _balance, _det_clamped, _free_dofs, _increments, _local_state,
                        newmark_parameters)
@@ -103,10 +107,12 @@ class UpConfig:
         return dataclasses.replace(self, **changes)
 
 
-def _check_supported(cfg: UpConfig, p: Particles):
+def _check_supported(cfg: UpConfig, p: Particles, grid):
     def later(what, item, where):
         return NotImplementedError(
             f"{what} is not ported yet: ROADMAP.md queue 1, item {item}, '{where}'")
+
+    check_background(cfg, grid)
 
     if p.dim not in (2, 3):
         raise ValueError(f"u-p steps run in 2D and 3D, not {p.dim}D")
@@ -119,7 +125,7 @@ def _check_supported(cfg: UpConfig, p: Particles):
     check_hyperelastic_kinds(cfg, "u-p")
     check_shapefun(cfg)
     if cfg.transfer == "binned":
-        raise later("transfer 'binned'", 13, "Other shape functions, engines and integrators")
+        raise binned_refused()
     if cfg.transfer not in ("scatter", "windowed", "fused"):
         raise ValueError(f"unknown transfer {cfg.transfer}")
     if cfg.transfer != "scatter" and cfg.active_box is None:
@@ -179,7 +185,7 @@ def up_step(
     diagnostics): ``nnz``, ``lost``, ``newton_iters`` and ``cg_iters``
     (ints; the latter counts GMRES iterations), ``newton_residual``,
     ``converged``."""
-    _check_supported(cfg, p)
+    _check_supported(cfg, p, grid)
     if cfg.transfer == "fused":
         return _up_step_fused(p, grid, mats, cfg, body_accel, traction, traction_area)
     d = p.dim
@@ -339,7 +345,7 @@ def run(p: Particles, grid: Grid, mats: MaterialTable, cfg: UpConfig, n_steps: i
     """Time loop (binned once by ``to_slot_layout`` on the windowed and fused
     engines).  Returns (particles, dict(newton_iters (n_steps,) int32,
     newton_residual (n_steps,)))."""
-    _check_supported(cfg, p)
+    _check_supported(cfg, p, grid)
     if body_accel is None:
         body_accel = torch.zeros((p.dim,), dtype=p.x.dtype, device=p.x.device)
     if cfg.transfer in ("windowed", "fused"):

@@ -61,8 +61,11 @@ converged iterate.)  K = n + L/20 when no solve runs all its cycles.
 Not ported yet (each raises ``NotImplementedError`` naming its item of
 ROADMAP.md queue 1): soil kinds other than Neo-Hookean,
 Saint-Venant-Kirchhoff and Solid-Rigid (item 12b),
-``halo``/``axis_name``/``rebin_mode='none'`` (item 15) and
-``transfer='binned'`` (item 13).
+``halo``/``axis_name``/``rebin_mode='none'`` (item 15).
+On an unstructured ``FEMesh`` (shapefun/femesh.py) the step runs on the
+scatter engine only; 'windowed' and 'fused' raise ``ValueError``.
+``transfer='binned'`` is on the do-not-port list (ROADMAP.md queue 2) and
+raises ``NotImplementedError``.
 The steps are dimension-generic like the JAX package's; the tests and
 ``chip_smoke.py`` hold them in 2D.
 """
@@ -84,8 +87,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import alme, lme
 from ..types import Grid, Particles, Record
 from . import kinematics as kin
-from .common import (check_hyperelastic_kinds, check_shapefun, found_lost, make_engine,
-                     shapefun_eval)
+from .common import (binned_refused, check_background, check_hyperelastic_kinds,
+                     check_shapefun, found_lost, make_engine, shapefun_eval)
 from .explicit import _bin_to_slots, to_slot_layout
 from .implicit import newmark_parameters
 
@@ -166,10 +169,12 @@ class UpwImplicitConfig:
         return dataclasses.replace(self, **changes)
 
 
-def _check_supported(cfg, p: Particles):
+def _check_supported(cfg, p: Particles, grid):
     def later(what, item, where):
         return NotImplementedError(
             f"{what} is not ported yet: ROADMAP.md queue 1, item {item}, '{where}'")
+
+    check_background(cfg, grid)
 
     if p.dim not in (2, 3):
         raise ValueError(f"u-pw steps run in 2D and 3D, not {p.dim}D")
@@ -180,8 +185,7 @@ def _check_supported(cfg, p: Particles):
     if cfg.rebin_mode != "local":
         raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")
     if cfg.transfer == "binned":
-        raise later(f"transfer '{cfg.transfer}'", 13,
-                    "Other shape functions, engines and integrators")
+        raise binned_refused()
     if cfg.transfer not in ("windowed", "fused", "scatter"):
         raise ValueError(f"unknown transfer {cfg.transfer}")
     check_hyperelastic_kinds(cfg, "u-pw")
@@ -281,7 +285,7 @@ def upw_step(
 
     ``grid.dirichlet_mask`` constrains the solid velocity dofs;
     ``pw_dirichlet_*`` the nodal pore pressure."""
-    _check_supported(cfg, p)
+    _check_supported(cfg, p, grid)
     if cfg.transfer == "fused":
         return _upw_step_fused(p, grid, mats, mix, cfg, body_accel, pw_dirichlet_mask,
                                pw_dirichlet_value)
@@ -586,7 +590,7 @@ def upw_newmark_step(
     m·(α₁dU − α₂u̇ₙ − α₃üₙ − b); θ rows Σ_p N·[(φ_f·ρ_f/K_f)·θ̇_{n+1} +
     ρ_f·dJ/dt]·V0 − (1/g)·Σ_p GRAD_A·[F⁻¹kF⁻ᵀ·GRADθ_{n+1} +
     J·ρ_f·F⁻¹k·(a_{n+1} − b)]·V0, with θ̇_{n+1} = (dθ − (1−γ)Δt·θ̇ₙ)/(γΔt)."""
-    _check_supported(cfg, p)
+    _check_supported(cfg, p, grid)
     if cfg.transfer == "fused":
         return _upw_newmark_step_fused(p, grid, mats, mix, cfg, body_accel, pw_dirichlet_mask,
                                        pw_dirichlet_value)
@@ -855,7 +859,7 @@ def run(p, grid, mats, mix, cfg, n_steps, body_accel=None, pw_dirichlet_mask=Non
     ``to_slot_layout``).  Returns (particles, dict(nnz, lost)), one entry a
     step stacked on the device at the end: the loop never waits on the
     host."""
-    _check_supported(cfg, p)
+    _check_supported(cfg, p, grid)
     if body_accel is None:
         body_accel = torch.zeros((p.dim,), dtype=p.x.dtype, device=p.x.device)
     if cfg.transfer != "scatter":

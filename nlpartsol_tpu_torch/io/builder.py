@@ -5,13 +5,11 @@ field (``tests/test_torch_builder.py``), made as the port's tensors on the
 given device in ``config.dtype()``.  The analog of the reference's setup flow (driver-nl-partsol.c:298-344:
 Solver_selector → gravity → GramsBox → Generate_One_Phase_Analysis →
 GramsOutputs → initialise_shapefun): reads the background mesh (structured
-Cartesian detection), seeds particles from the particle-source GiD mesh with
+Cartesian detection, else an unstructured ``FEMesh`` of its T3/Q4/T4/H8
+elements with GiD node ids mapped 1:1, and for an LME deck the node bins at
+the support radius), seeds particles from the particle-source GiD mesh with
 GPxElement, assembles the material table, Dirichlet masks/curves, Neumann
 loads, gravity curves, and solver config.
-
-Not ported yet: a non-Cartesian background mesh (the JAX package's
-``femesh.from_gid``, and the node bins of an unstructured LME deck) raises
-``NotImplementedError`` naming ROADMAP.md queue 1, item 13.
 """
 
 from __future__ import annotations
@@ -25,6 +23,8 @@ import torch
 
 from .. import config
 from ..models import materials as M
+from ..shapefun import femesh
+from ..shapefun import lme as lme_mod
 from ..types import Grid, Particles, make_particles
 from ..utils import curves
 from . import gid_mesh
@@ -118,7 +118,7 @@ class SolverParams:
 @dataclass
 class SimulationSetup:
     solver: SolverParams
-    grid: Grid
+    grid: Grid  # or a FEMesh: an unstructured background mesh
     particles: Particles
     materials: M.MaterialTable
     kinds: tuple
@@ -257,17 +257,21 @@ def build_simulation(path: str, device="cuda") -> SimulationSetup:
     bg = gid_mesh.read_gid_mesh(mesh_file)
     try:
         dims, h, origin = gid_mesh.structured_grid_from_mesh(bg)
-    except ValueError as exc:
-        raise NotImplementedError(
-            f"{mesh_file}: a non-Cartesian background mesh ({exc}) is not ported yet: "
-            "ROADMAP.md queue 1, item 13, 'Other shape functions, engines and integrators'"
-        ) from exc
-    d = len(dims)
-    n_nodes = int(np.prod(dims))
-    # GiD node ids → structured flat index mapping
-    rel = np.round((bg.coords - np.asarray(origin)) / h).astype(np.int64)
-    strides = np.concatenate([np.cumprod(np.asarray(dims[::-1]))[-2::-1], [1]])
-    gid2flat = (rel * strides).sum(axis=1)
+        unstructured = False
+        d = len(dims)
+        n_nodes = int(np.prod(dims))
+        # GiD node ids → structured flat index mapping
+        rel = np.round((bg.coords - np.asarray(origin)) / h).astype(np.int64)
+        strides = np.concatenate([np.cumprod(np.asarray(dims[::-1]))[-2::-1], [1]])
+        gid2flat = (rel * strides).sum(axis=1)
+    except ValueError:
+        # a non-Cartesian background mesh: the unstructured isoparametric
+        # path (reference GramsBox Type=GID on T3/Q4/T4/H8 meshes,
+        # Read_GramsBox.c:54-150); GiD node ids map 1:1
+        unstructured = True
+        d = bg.dimension
+        n_nodes = bg.n_nodes
+        gid2flat = np.arange(n_nodes, dtype=np.int64)
 
     # --- Dirichlet boundaries ---
     dmask = np.zeros((n_nodes, d), bool)
@@ -285,13 +289,16 @@ def build_simulation(path: str, device="cuda") -> SimulationSetup:
             curve = read_curve_file(os.path.join(base, st[2]), max(sp.n_steps, 1))
             dirichlet_nodes.append((flat, comp, curve))
 
-    grid = Grid(
-        dims=tuple(dims),
-        spacing=h,
-        origin=tuple(origin),
-        dirichlet_mask=torch.as_tensor(dmask, device=device),
-        dirichlet_value=torch.zeros((n_nodes, d), dtype=config.dtype(), device=device),
-    )
+    if unstructured:
+        grid = femesh.from_gid(bg, dirichlet_mask=dmask, device=device)
+    else:
+        grid = Grid(
+            dims=tuple(dims),
+            spacing=h,
+            origin=tuple(origin),
+            dirichlet_mask=torch.as_tensor(dmask, device=device),
+            dirichlet_value=torch.zeros((n_nodes, d), dtype=config.dtype(), device=device),
+        )
 
     # --- materials ---
     mats = _materials(blocks, device)
@@ -384,11 +391,13 @@ def build_simulation(path: str, device="cuda") -> SimulationSetup:
         vel = parse_vector(str(icn.props.get("VELOCITY", "[0,0,0]")))
         field = np.zeros((n_nodes, d))
         field[nids] = vel[:d]
-        # interpolate with the background multilinear basis (the reference
-        # interpolates through the FEM background mesh shape functions)
+        # interpolate with the background mesh's FEM basis, as the
+        # reference does: multilinear on a grid, isoparametric on a FEMesh
+        # (where the JAX builder fails: ROADMAP.md queue 3)
         from ..shapefun import fem
 
-        sf = fem.evaluate(grid, torch.as_tensor(pos, dtype=config.dtype(), device=device))
+        xp = torch.as_tensor(pos, dtype=config.dtype(), device=device)
+        sf = femesh.evaluate(grid, xp) if unstructured else fem.evaluate(grid, xp)
         N = torch.where(sf["mask"], sf["N"], torch.zeros_like(sf["N"])).cpu().numpy()
         vp = np.einsum("pk,pkc->pc", N, field[sf["node_ids"].cpu().numpy()])
         host["v"] = (host["v"] + vp).astype(real)
@@ -462,6 +471,11 @@ def build_simulation(path: str, device="cuda") -> SimulationSetup:
             fracture = normalize_fracture(str(fm))
 
     shp, shp_params = _shapefun(blocks)
+    if unstructured and shp == "lme":
+        # meshfree LME over the unstructured node cloud: the support-radius
+        # node bins
+        lp = lme_mod.LMEParams(**shp_params)
+        grid = femesh.with_node_bins(grid, lme_mod.support_radius(lp, grid.h_avg))
 
     # --- mixtures (soil-water coupling) ---
     mixtures = _mixtures(blocks, device)

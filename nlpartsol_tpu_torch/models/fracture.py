@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..ops import tensor as tn
-from ..ops.windowed import ActiveBox
+from ..ops.windowed import ActiveBox, require_grid
 from ..types import Grid
 
 Tensor = torch.Tensor
@@ -215,6 +215,7 @@ def damage_update(p, grid, box, damage, mats, act, cs, J_n1, F_n1, reach):
     """The configured driver's (damage, strain_f) at n+1 from the slot-layout
     state ``p`` and the constitutive result ``cs`` (the JAX package's
     ``explicit._damage_update`` without a halo)."""
+    require_grid(grid, "the Beps sums of a fracture driver")
     mid = p.mat_id.long()
     if damage == "eigenerosion":
         return eigenerosion(

@@ -26,9 +26,12 @@ from ..types import Grid
 
 
 class ScatterEngine:
-    def __init__(self, grid: Grid, node_ids, mask):
+    """On a Grid or a FEMesh (any background with ``n_nodes``).  The node
+    ids are widened to int64 once here, not in every transfer."""
+
+    def __init__(self, grid, node_ids, mask):
         self.grid = grid
-        self.ids = node_ids
+        self.ids = node_ids.long()
         self.mask = mask
 
     def p2g(self, vals):
@@ -38,7 +41,7 @@ class ScatterEngine:
         return sparse.g2p(self.ids, self.mask, weights, field)
 
     def edge_gather(self, field):
-        g = field[self.ids.long()]  # (Np, K[, c])
+        g = field[self.ids]  # (Np, K[, c])
         m = self.mask if g.ndim == 2 else self.mask[..., None]
         return torch.where(m, g, torch.zeros((), dtype=g.dtype, device=g.device))
 

@@ -105,10 +105,20 @@ def slot_cells(box: ActiveBox) -> np.ndarray:
     return np.tile(idx, (box.capacity, 1)).astype(np.int32)
 
 
+def require_grid(grid, what: str):
+    """The slot layout bins particles to the cells of a structured Grid: an
+    unstructured FEMesh has none, and raises naming the scatter engine."""
+    if not isinstance(grid, Grid):
+        raise ValueError(f"{what} needs a structured Grid's cells, not a "
+                         f"{type(grid).__name__}: an unstructured FEMesh runs on the "
+                         "scatter engine (transfer='scatter')")
+
+
 def required_capacity(grid: Grid, box: ActiveBox, x, active=None) -> int:
     """Host-side (NumPy) max particle count over the box's cells — the
     minimum slot capacity that loses nothing for this configuration.  Use at
     setup time."""
+    require_grid(grid, "required_capacity")
     x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
     if active is None:
         active = np.ones(x.shape[0], bool)
@@ -138,6 +148,7 @@ def default_box(grid: Grid, x, active=None, slack: float = 2.0) -> ActiveBox:
 def bin_particles(grid: Grid, box: ActiveBox, x: Tensor, active: Tensor) -> Binning:
     """Sort-based cell binning: stable sort by cell id, rank within the
     cell, one Np-sized scatter into the slot table."""
+    require_grid(grid, "bin_particles")
     n = x.shape[0]
     dev = x.device
     it = config.index_dtype()

@@ -120,22 +120,29 @@ def write_initial_conditions_case(tmp_path):
 def set_triangle_background(case):
     """The bar over a background of T3 triangles whose node columns are not
     evenly spaced: a non-Cartesian mesh (the unstructured path)."""
-    with open(case / "bg.msh", "w") as fh:
+    write_triangle_mesh(case / "bg.msh", 20, 2, 0.05, 0.01)
+    return case / "sim.nlp"
+
+
+def write_triangle_mesh(path, nx, ny, h, shift):
+    """A GiD mesh of T3 triangles (two a cell) over (nx+1)×(ny+1) nodes of
+    spacing h, the odd interior node columns moved by ``shift`` along x."""
+    with open(path, "w") as fh:
         fh.write("MESH dimension 2 ElemType Triangle Nnode 3\nCoordinates\n")
         nid = 1
-        for i in range(21):
-            x = i * 0.05 + (0.01 if 0 < i < 20 and i % 2 else 0.0)
-            for j in range(3):
-                fh.write(f"{nid} {x} {j * 0.05}\n")
+        for i in range(nx + 1):
+            x = i * h + (shift if 0 < i < nx and i % 2 else 0.0)
+            for j in range(ny + 1):
+                fh.write(f"{nid} {x} {j * h}\n")
                 nid += 1
         fh.write("End Coordinates\nElements\n")
         eid = 1
-        for i in range(20):
-            for j in range(2):
-                n0 = i * 3 + j + 1
-                n1 = (i + 1) * 3 + j + 1
+        for i in range(nx):
+            for j in range(ny):
+                n0 = i * (ny + 1) + j + 1
+                n1 = (i + 1) * (ny + 1) + j + 1
                 for tri in ((n0, n1, n1 + 1), (n0, n1 + 1, n0 + 1)):
                     fh.write(f"{eid} {tri[0]} {tri[1]} {tri[2]}\n")
                     eid += 1
         fh.write("End Elements\n")
-    return case / "sim.nlp"
+    return path

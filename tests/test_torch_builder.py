@@ -2,8 +2,9 @@
 ``SimulationSetup`` equal, array by array, on tests/test_io.py's decks (the
 FEM and LME bar, the soil-water column, the hydrostatic and nodal initial
 conditions, the Neumann load, the CSV events) and the reference binary's
-``dem_bar`` golden deck; a non-Cartesian background mesh is refused naming
-ROADMAP.md queue 1, item 13."""
+``dem_bar`` golden deck; and the bar over a non-Cartesian background of
+T3 triangles, built as an unstructured FEMesh with FEM and with LME shape
+functions."""
 
 import dataclasses
 import os
@@ -13,7 +14,9 @@ import pytest
 import torch
 
 from nlpartsol_tpu.io.builder import build_simulation as jax_build
+from nlpartsol_tpu.shapefun.femesh import FEMesh as JFEMesh
 from nlpartsol_tpu_torch.io.builder import build_simulation
+from nlpartsol_tpu_torch.shapefun.femesh import FEMesh
 
 import _torch_decks as decks
 from _torch_port import cheap_jax_compiles  # noqa: F401
@@ -53,6 +56,10 @@ def _groups_equal(gj, gt, what):
 
 def assert_setups_equal(sj, st):
     assert dataclasses.asdict(sj.solver) == dataclasses.asdict(st.solver)
+    # a structured Grid, or an unstructured FEMesh field by field: kind,
+    # nodes, connectivity, the element bins, spacing, h_avg, the node bins
+    # of an LME deck and the Dirichlet mask and values
+    assert isinstance(sj.grid, JFEMesh) == isinstance(st.grid, FEMesh)
     _record_equal(sj.grid, st.grid, "grid")
     _record_equal(sj.particles, st.particles, "particles")
     _record_equal(sj.materials, st.materials, "materials")
@@ -102,7 +109,15 @@ def test_builder_matches_jax(name, bar_case, upw_case, tmp_path):  # noqa: F811
 
 
 def test_unstructured_background_waits_for_item_13(bar_case):  # noqa: F811
-    path = decks.set_triangle_background(bar_case)
-    with pytest.raises(NotImplementedError,
-                       match="item 13, 'Other shape functions, engines and integrators'"):
-        build_simulation(str(path), device="cpu")
+    """The bar over T3 triangles with unevenly spaced node columns (the name
+    is from before unstructured meshes were ported): both builders make the
+    same FEMesh and setup, with FEM and then with LME (the node bins at the
+    support radius of the deck's LME parameters)."""
+    path = str(decks.set_triangle_background(bar_case))
+    for shapefun in ("FEM", "LME"):
+        if shapefun == "LME":
+            path = str(decks.set_shapefun(bar_case, "LME"))
+        sj, st = jax_build(path), build_simulation(path, device="cpu")
+        assert isinstance(st.grid, FEMesh) and st.grid.kind == "T3"
+        assert (st.grid.nbin_nodes is not None) == (shapefun == "LME")
+        assert_setups_equal(sj, st)

@@ -193,7 +193,7 @@ def test_options_that_wait_raise():
     base = tim.ImplicitConfig(dt=1e-3, lme_params=lt, active_box=tb)
     waiting = [("item 12b", dict(kinds=(4,))), ("item 15", dict(axis_name="p")),
                ("item 15", dict(halo=object())), ("item 15", dict(rebin_mode="none")),
-               ("item 13", dict(transfer="binned"))]
+               ("queue 2", dict(transfer="binned"))]
     for item, kw in waiting:
         with pytest.raises(NotImplementedError, match=item):
             tim.implicit_step(tp, tg, mt, base.replace(**kw), body)

@@ -113,15 +113,15 @@ def test_driver_dispatches_fe_and_generalized_alpha(scheme, bar_case, tmp_path, 
 
 def test_scheme_routing_and_refusals(bar_case):  # noqa: F811
     """The NPC-FS step points FE/GA at the integrators; the integrators take
-    the windowed and scatter engines ('binned' waits for item 13, the kernels
-    have no path for them)."""
+    the windowed and scatter engines ('binned' is on the do-not-port list,
+    the kernels have no path for them)."""
     setup = build_simulation(str(decks.set_scheme(bar_case, "FE")), device="cpu")
     box = twin.default_box(setup.grid, setup.particles.x.numpy(), setup.particles.active.numpy())
     cfg = driver.make_step_config(setup, transfer="windowed", active_box=box)
     p = tex.to_slot_layout(setup.particles, setup.grid, box)
     with pytest.raises(ValueError, match="integrators.forward_euler_step"):
         tex.explicit_step(p, setup.grid, setup.materials, cfg, torch.zeros(2))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="do-not-port list, ROADMAP.md queue 2"):
         tint.forward_euler_step(p, setup.grid, setup.materials, cfg.replace(transfer="binned"),
                                 torch.zeros(2))
     with pytest.raises(ValueError, match="no fused transfer path"):

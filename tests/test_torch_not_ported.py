@@ -1,9 +1,10 @@
-"""What the port does not hold yet fails loudly: each option that waits for
-a later slice raises NotImplementedError naming that slice of ROADMAP.md —
-sharding (item 15, fracture included), unstructured background meshes and
-the 'binned' transfer (item 13), and the implicit, u-p and DEM steps'
+"""What the port does not hold fails loudly: each option that waits for a
+later slice raises NotImplementedError naming that slice of ROADMAP.md —
+sharding (item 15, fracture included) and the implicit, u-p and DEM steps'
 material kinds beyond the hyperelastic ones (item 12b; the explicit step
-takes every kind)."""
+takes every kind) — the 'binned' transfer names the do-not-port list
+(queue 2), and an unstructured FEMesh on a slot-layout engine (or under a
+fracture driver) raises ValueError naming the scatter engine."""
 
 import pytest
 import torch
@@ -11,33 +12,51 @@ import torch
 from nlpartsol_tpu_torch.formulations import dem as tdem, explicit as tex, implicit as tim
 from nlpartsol_tpu_torch.formulations import up as tup
 from nlpartsol_tpu_torch.models import materials as tM
+from nlpartsol_tpu_torch.shapefun import femesh as tfem
 
 from _torch_port import cheap_jax_compiles, neo_hookean_tables, problem  # noqa: F401
 
 torch.set_num_threads(1)
 
 
+NOT_PORTED = NotImplementedError
+
+
+def _t3_mesh(grid):
+    """A FEMesh of two triangles a cell over the grid's nodes."""
+    ids = torch.arange(grid.n_nodes).reshape(grid.dims)
+    a, b, c, d = ids[:-1, :-1], ids[1:, :-1], ids[1:, 1:], ids[:-1, 1:]
+    tris = torch.cat([torch.stack([a, b, c], -1).reshape(-1, 3),
+                      torch.stack([a, c, d], -1).reshape(-1, 3)])
+    return tfem.build_femesh(grid.node_coords(device="cpu").double().numpy(), tris.numpy(), "T3",
+                             device="cpu")
+
+
 @pytest.mark.parametrize(
-    "step,changes,match",
+    "step,changes,match,error",
     [
-        ("explicit", [dict(halo=object()), dict(axis_name="p")], "Multi-device"),
-        ("explicit", [dict(rebin_mode="none")], "Multi-device"),
+        ("explicit", [dict(halo=object()), dict(axis_name="p")], "Multi-device", NOT_PORTED),
+        ("explicit", [dict(rebin_mode="none")], "Multi-device", NOT_PORTED),
         # the Beps sums across shard seams wait with the sharding itself
-        ("explicit", [dict(damage="eigenerosion", halo=object())], "item 15, 'Multi-device'"),
-        ("unstructured", [dict(transfer="scatter")],
-         "unstructured background meshes.*'Other shape functions"),
-        ("explicit", [dict(transfer="binned")], "Other shape functions"),
+        ("explicit", [dict(damage="eigenerosion", halo=object())], "item 15, 'Multi-device'",
+         NOT_PORTED),
+        # a FEMesh has no slot layout: the scatter engine only, no fracture
+        ("unstructured", [dict(transfer="windowed"), dict(transfer="fused"),
+                          dict(transfer="scatter", damage="eigenerosion")],
+         r"scatter engine \(transfer='scatter'\)|fracture drivers require", ValueError),
+        ("explicit", [dict(transfer="binned")], "do-not-port list, ROADMAP.md queue 2",
+         NOT_PORTED),
         # a return mapping's forward-mode J·v waits on the implicit steps
         ("implicit", [dict(kinds=(tM.DRUCKER_PRAGER,))],
-         "Drucker-Prager.*item 12b, 'Remaining models'"),
-        ("up", [dict(kinds=(tM.HENCKY,))], "Hencky.*u-p step.*item 12b"),
-        ("dem", [dict(kinds=(tM.VON_MISES,))], "Von-Mises.*item 12b"),
+         "Drucker-Prager.*item 12b, 'Remaining models'", NOT_PORTED),
+        ("up", [dict(kinds=(tM.HENCKY,))], "Hencky.*u-p step.*item 12b", NOT_PORTED),
+        ("dem", [dict(kinds=(tM.VON_MISES,))], "Von-Mises.*item 12b", NOT_PORTED),
     ],
     ids=["halo,axis_name", "rebin_mode=none", "damage+halo", "unstructured_grid",
          "transfer=binned", "implicit_kinds=Drucker-Prager", "up_kinds=Hencky",
          "dem_kinds=Von-Mises"],
 )
-def test_what_waits_raises_not_implemented(step, changes, match):
+def test_what_waits_raises_not_implemented(step, changes, match, error):
     _, (tg, tb, tp, lt) = problem(seed=0)
     _, mt = neo_hookean_tables()
     if step == "implicit":
@@ -49,7 +68,7 @@ def test_what_waits_raises_not_implemented(step, changes, match):
     else:
         cfg = tex.ExplicitConfig(dt=1e-5, lme_params=lt, active_box=tb, transfer="fused")
         fn = tex.explicit_step
-    grid = object() if step == "unstructured" else tg  # a background that is no Grid
+    grid = _t3_mesh(tg) if step == "unstructured" else tg
     for change in changes:
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(error, match=match):
             fn(tp, grid, mt, cfg.replace(**change), torch.zeros(2))

@@ -82,7 +82,7 @@ def test_3d_and_unknown_options_raise():
         tex.explicit_step(tp, tg, mt, cfg.replace(active_box=None), torch.zeros(2))
     with pytest.raises(ValueError, match="no fused transfer path"):
         tcommon.make_engine(cfg.replace(transfer="fused"), tg, {}, None, None)
-    with pytest.raises(NotImplementedError, match="unstructured"):
+    with pytest.raises(TypeError, match="must be a Grid or a FEMesh"):
         tcommon.shapefun_eval(cfg, object(), tp)
     with pytest.raises(ValueError, match="tractions require rebin_every=1"):
         tex.explicit_step(tp, tg, mt, cfg.replace(transfer="fused", rebin_every=2,

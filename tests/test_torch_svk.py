@@ -115,7 +115,7 @@ def test_scatter_engine_matches_jax(dim):
 
 def test_make_engine_routes_the_transfer_names():
     """'scatter' builds the ScatterEngine (no box needed), 'windowed' needs a
-    box, 'binned' raises naming ROADMAP.md item 13, 'fused' is the steps'
+    box, 'binned' raises naming the do-not-port list, 'fused' is the steps'
     own dispatch and never reaches make_engine."""
     gj = JGrid(dims=(4, 4), spacing=1.0 / 3, origin=(0.0, 0.0))
     tg = to_torch_grid(gj)
@@ -126,7 +126,7 @@ def test_make_engine_routes_the_transfer_names():
     assert isinstance(common.make_engine(cfg, tg, st, offs, st["mask"]), ttransfer.ScatterEngine)
     with pytest.raises(ValueError, match="active_box"):
         common.make_engine(cfg.replace(transfer="windowed"), tg, st, offs, st["mask"])
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="do-not-port list, ROADMAP.md queue 2"):
         common.make_engine(cfg.replace(transfer="binned"), tg, st, offs, st["mask"])
     with pytest.raises(ValueError, match="no fused transfer path"):
         common.make_engine(cfg.replace(transfer="fused"), tg, st, offs, st["mask"])

@@ -209,7 +209,7 @@ def test_new_steps_refuse_what_waits():
         cfg = cls(dt=1e-4, lme_params=lt, active_box=tb, transfer="fused")
         for change, match in [(dict(axis_name="p"), "item 15"),
                               (dict(rebin_mode="none"), "item 15"),
-                              (dict(transfer="binned"), "item 13"),
+                              (dict(transfer="binned"), "queue 2"),
                               (dict(kinds=(tM.HENCKY,)), "Remaining models")]:
             with pytest.raises(NotImplementedError, match=match):
                 step(tp, tg, hencky if "kinds" in change else mt, cfg.replace(**change),

@@ -155,7 +155,7 @@ def test_options_that_wait_raise():
     body = torch.as_tensor(BODY)
     base = tupw.UpwConfig(dt=1e-6, active_box=box)
     waiting = [("item 15", dict(axis_name="p")), ("item 15", dict(halo=object())),
-               ("item 15", dict(rebin_mode="none")), ("item 13", dict(transfer="binned"))]
+               ("item 15", dict(rebin_mode="none")), ("queue 2", dict(transfer="binned"))]
     for item, kw in waiting:
         with pytest.raises(NotImplementedError, match=item):
             tupw.upw_step(tp, tg, tm, tmix, base.replace(**kw), body)
