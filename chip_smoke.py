@@ -8,7 +8,8 @@ source, all started together) and drives the port's paths — the 2D and
 the 3D explicit LME step, the 2D and 3D implicit Newmark step, the 2D
 explicit and implicit soil-water mixture (u-pw) step, the 2D mixed u-p and
 Discrete Energy-Momentum (DEM) steps, the explicit step with every
-constitutive model in 2D and 3D, and nonlocal fracture on the explicit
+constitutive model in 2D and 3D, the implicit and u-pw steps with the
+return mappings and Hencky, and nonlocal fracture on the explicit
 (2D, 3D) and implicit steps, on the fused kernels; uGIMP and aLME on the
 windowed engine; the scatter engine on every step that takes it;
 unstructured T3/Q4/T4/H8 background meshes with FEM and meshfree LME; the
@@ -74,7 +75,7 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              formulations/upw.py, host syncs, 5 J·v under the profiler (a
              whole step is some 600,000 kernels: minutes of profiling)
   upw_implicit_parity
-             2 implicit u-pw steps on both engines on the card at 128², by pid:
+             1 implicit u-pw step on both engines on the card at 128², by pid:
              rel_dx < 1e-3, rel_dv < 1e-2, pw within 1e-2 of its largest
              magnitude, equal Newton iterations; with ``roofline`` the u-pw
              steps' call variants at their shapes (rows ``…@upw``,
@@ -91,7 +92,7 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              tensors: the plain versions and this torch build's forward mode),
              and the card's float32 J·v through the kernels against the plain
              versions' float32 J·v at the same x and v (``JV_F32_LIMIT``)
-  up_parity  2 u-p steps on both engines on the card at 64², by pid:
+  up_parity  1 u-p step on both engines on the card at 64², by pid:
              rel_dx < 1e-3, rel_dv < 1e-2, the λ gap over its largest
              magnitude within 1e-2 in root mean square and 1e-1 at its
              largest (``BENCH_PARITY``: the float32 spread of this problem,
@@ -135,6 +136,39 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              particles, a re-bin every step) with Hencky, von Mises,
              Drucker-Prager and Matsuoka-Nakai: 2 warm-up + 4 timed steps,
              then 4 steps of parity (line ``models_parity3d``)
+  implicit_models
+             the return mappings on the implicit step: bench_implicit.py's
+             256² problem (65,536 particles, capacity-6 box of 132² cells,
+             dt = 2h/c) with strips of von Mises, Drucker-Prager,
+             Matsuoka-Nakai and Hencky (``IMPLICIT_MODEL_KINDS``) in the
+             models phases' rigid frame, the frictional strip confined, on
+             the fused kernels, Newton tolerance 1e-4
+             (``IMPLICIT_MODELS_NEWTON_TOL``: the plastic strips' float32
+             floor); 1 warm-up + 1 timed step: converged, lost 0,
+             finite, launches equal to the formula of
+             formulations/implicit.py (one G-scatter more a step for the
+             frame's reactions), each plastic kind yielded somewhere; Newton
+             and CG iterations, host ms per residual and per J·v;
+             ``implicit_models3d``: the 96³ problem with Drucker-Prager and
+             Hencky strips
+  implicit_models_parity
+             2 of those steps at 64² on the fused kernels and the windowed
+             engine, by pid: rel_dx < 1e-3, rel_dv < 1e-2, equal Newton
+             iterations, per kind the eps gap within ``MODELS_EPS_GAP``
+  upw_models the u-pw steps with a Drucker-Prager soil (``UPW_SOIL``): the
+             explicit 512² step, 4 + 16 steps, 3 scatters and 5 gathers a
+             step, parity over 4 steps against the windowed
+             engine (pw within 1e-4); one implicit step at 128², dt 5× the
+             explicit one, on the fused kernels (launches held to
+             formulations/upw.py's formula) and on
+             the windowed engine (pw within 1e-2, equal Newton iterations,
+             ``converged`` reported); the soil yielded on both
+  models_jv  the stress update's J·v for every kind (``JV_KINDS``), 2D and
+             3D, 4,096 states a kind at tests/test_torch_tangent.py's three
+             state families (general, diagonal, rest): finite, within
+             ``JV_TOL`` of a float64 central difference on the card (rows
+             that straddle a branch counted, not compared) and of the CPU's
+             float32 J·v on every 8th state
   deck       the user's entry point at the main path's width: bench.py's
              problem written as a deck (``DECK``), ``build_simulation`` and
              ``run_simulation(transfer='auto')`` for 48 steps with VTK every
@@ -147,7 +181,9 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              deck's Fracture-Modulus key on the fused and windowed explicit
              and the Newmark-β routes, at a re-bin every step; uGIMP; aLME
              with β finite and pulled back; an unstructured T3 background,
-             FEM and LME, on the scatter engine), then
+             FEM and LME, on the scatter engine; Newmark-β with
+             Drucker-Prager, Static with von Mises, -upw Newmark-β with a
+             Drucker-Prager soil, -up with Hencky, DEM with Hencky), then
              the reference binary's DEM goldens through the port's builder
              in float64
   fracture   eigenerosion, then eigensoftening, on the main path's problem
@@ -232,6 +268,10 @@ import numpy as np
 import torch
 
 T_START = time.perf_counter()
+# launches by kernel variant of the paths that print no rows of their own:
+# {path: (the row tag of the path with the same call variants, counts)},
+# read into those rows of the "kernels" line as ``launches_by_path``
+PATH_LAUNCHES = {}
 # main_path's ms/step of this run, for the deck phase's line
 REPORT = {}
 
@@ -941,8 +981,8 @@ def _roofline_rows(grid, p, cfg, counts, margin, rows, path_tag=""):
 # Walker forcing) on the fused kernels and a local re-bin after every step;
 # warm-up and timed steps, and the steps of the parity leg.
 IMPLICIT = {
-    2: dict(n_side=256, warm=1, steps=5, parity_steps=2),
-    3: dict(n_side=96, warm=1, steps=3, parity_steps=2),
+    2: dict(n_side=256, warm=1, steps=1, parity_steps=2),  # steps 5 → 1 (time limit)
+    3: dict(n_side=96, warm=1, steps=1, parity_steps=2),  # steps 3 → 1 (time limit)
 }
 
 
@@ -1230,30 +1270,37 @@ def phase_implicit_roofline(grid, p, mats, cfg, counts, steps):
 # implicit steps).
 UPW = dict(n_side=512, warm=4, steps=16, parity_steps=8)
 # timed steps 3 → 1 (u-p's and DEM's 2 → 1) to keep the whole script inside its
-# limit with the unstructured phases (PERF.md §5: host-bound, 15-25 s a step)
-UPW_IMPLICIT = dict(n_side=256, warm=1, steps=1, parity_steps=2, parity_n_side=128)
+# limit with the unstructured phases (PERF.md §5: host-bound, 15-25 s a step);
+# parity steps 2 → 1 (u-p's 2 → 1) and warm-up steps 1 → 0 (u-p's and DEM's) with
+# the implicit-models phases
+UPW_IMPLICIT = dict(n_side=256, warm=0, steps=1, parity_steps=1, parity_n_side=128)
 # per explicit step: 3 scatters and 5 gathers, by launch key
 UPW_LAUNCHES = {"lme_scatter2d:solve": 1, "lme_scatter2d:G": 2, "lme_gather2d:N+grad": 1,
                 "lme_gather2d:grad": 2, "lme_gather2d:N": 2}
 C_MIX = float(np.sqrt((2.2e7 / 0.4) / 1700.0))
 
 
-def build_upw(device, implicit, n_side=None):
+def build_upw(device, implicit, n_side=None, soil=None):
+    """bench_upw.py's problem; ``soil`` (a material row without E, ν, ρ)
+    replaces its Neo-Hookean soil, started at κ = κ0."""
     from nlpartsol_tpu_torch.formulations import upw
     from nlpartsol_tpu_torch.models import materials as M
 
     spec = UPW_IMPLICIT if implicit else UPW
     grid, p, _, cfg_e, h = build_problem(2, n_side or spec["n_side"], device)
+    soil = soil or dict(kind="Neo-Hookean-Wriggers")
     mats = M.material_table(
-        [M.material(kind="Neo-Hookean-Wriggers", E=1e7, nu=0.3, rho0=2700.0),
+        [M.material(E=1e7, nu=0.3, rho0=2700.0, **soil),
          M.material(kind="Newtonian-Fluid-Compressible", rho0=1000.0, compressibility=2.2e7)],
         device=device)
     mix = upw.make_mixture_table(
         [dict(soil_id=0, water_id=1, phi_s0=0.6, phi_f0=0.4, permeability=1e-5)], device=device)
     p = upw.init_mixture_state(p, mats, mix)
+    p = p.replace(kappa=torch.full_like(p.kappa, float(mats.kappa0[0])))
     dt = 0.25 * h / C_MIX
-    common = dict(lme_params=cfg_e.lme_params, kinds=cfg_e.kinds, transfer="fused",
-                  active_box=cfg_e.active_box)
+    common = dict(lme_params=cfg_e.lme_params, kinds=tuple(sorted({cfg_e.kinds[0],
+                                                                  int(mats.kind[0])})),
+                  transfer="fused", active_box=cfg_e.active_box)
     cfg = (upw.UpwImplicitConfig(dt=20 * dt, **common) if implicit
            else upw.UpwConfig(dt=dt, **common))
     return grid, p, mats, mix, cfg, h
@@ -1534,6 +1581,104 @@ def phase_upw_implicit_parity(device):
         raise PhaseError(f"upw_implicit_parity: {out}, Newton {newton_f} vs {newton_w}")
 
 
+# upw_models: the u-pw steps with a Drucker-Prager soil (started at κ0; the
+# strength low enough that the soil yields in the phase's steps): the
+# explicit 512² step as ``upw`` runs it, with ``upw_parity``'s 8 steps
+# against the windowed engine, and one implicit step at upw_implicit_parity's
+# 128² on both engines
+UPW_SOIL = dict(kind="Drucker-Prager", kappa0=100.0, friction_angle=30.0, dilatancy_angle=10.0,
+                exponent_ortiz=2.0, plastic_strain_0=0.01)
+# the implicit leg at 5× the explicit step (``upw_implicit`` takes 20×): at
+# 20× the plastic soil's loop ends by the stall rule after 7 Newton
+# iterations and 1,040 GMRES on both engines (on an H100 80GB HBM3 at 700 W), the
+# phase's largest cost
+UPW_MODELS = dict(parity_steps=4, implicit_steps=1, implicit_dt_factor=5.0)
+
+
+def _yielded(p, eps0=0.0):
+    act = p.active
+    return float((p.eps[act] > eps0).double().mean())
+
+
+def phase_upw_models(device):
+    """The explicit and implicit u-pw steps with a Drucker-Prager soil on
+    the fused kernels (launches counted from 0 over the timed steps, held to
+    the formulas of formulations/upw.py), the soil's yielded share above 0,
+    and parity with the windowed engine by pid."""
+    from nlpartsol_tpu_torch.formulations import upw
+    from nlpartsol_tpu_torch.formulations.explicit import to_slot_layout
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+    from nlpartsol_tpu_torch.ops import solvers
+
+    t_phase = time.perf_counter()
+    grid, p0, mats, mix, cfg, h = build_upw(device, implicit=False, soil=UPW_SOIL)
+    body = _upw_body(p0)
+    p1, _ = upw.run(p0, grid, mats, mix, cfg, UPW["warm"], body)
+    steps = UPW["steps"]
+    ft.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p2, diag = upw.run(p1, grid, mats, mix, cfg, steps, body)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(ft.launch_counts)
+    _check_upw("upw_models", p2, diag["lost"].sum())
+    want = {k: n * steps for k, n in UPW_LAUNCHES.items()}
+    if counts != want:
+        raise PhaseError(f"upw_models: launch counts {counts}, expected {want}")
+    PATH_LAUNCHES["upw_models"] = ("upw", counts)
+    explicit = dict(grid="x".join(map(str, grid.dims)), particles=p0.count, dt=cfg.dt,
+                    warmup_steps=UPW["warm"], steps=steps, ms_per_step=1e3 * seconds / steps,
+                    launches=counts, lost=0, yielded_share=_yielded(p2))
+    # parity over upw_parity's steps from the same state
+    par = UPW_MODELS["parity_steps"]
+    pf, df = upw.run(p0, grid, mats, mix, cfg, par, body)
+    pw_, dw = upw.run(p0, grid, mats, mix, cfg.replace(transfer="windowed"), par, body)
+    for q, d, tag in ((pf, df, "fused"), (pw_, dw, "windowed")):
+        _check_upw(f"upw_models:parity:{tag}", q, d["lost"].sum())
+    out, ok = _upw_parity(pf, pw_, h, "upw_models:parity", 1e-4)
+    explicit["parity"] = dict(steps=par, **out)
+    del p1, p2, pf, pw_
+    torch.cuda.empty_cache()
+
+    # the implicit step at 128², fused then windowed from the same state
+    grid, p0, mats, mix, cfg, h = build_upw(device, implicit=True,
+                                            n_side=UPW_IMPLICIT["parity_n_side"], soil=UPW_SOIL)
+    cfg = cfg.replace(dt=UPW_MODELS["implicit_dt_factor"] * 0.25 * h / C_MIX)
+    p1 = to_slot_layout(p0, grid, cfg.active_box)
+    isteps = UPW_MODELS["implicit_steps"]
+    ft.reset_launch_counts()
+    solvers.reset_host_syncs()
+    times = []
+    pf, hist_f = _upw_implicit_steps("upw_models:implicit:fused", p1, grid, mats, mix, cfg,
+                                     isteps, times)
+    counts, syncs = dict(ft.launch_counts), dict(solvers.host_syncs)
+    want = upw_implicit_launches(isteps, sum(x[0] for x in hist_f), sum(x[1] for x in hist_f),
+                                 syncs.get("krylov", 0))
+    if counts != want:
+        raise PhaseError(f"upw_models: implicit launch counts {counts}, expected {want}")
+    PATH_LAUNCHES[f"upw_models_implicit@{UPW_IMPLICIT['parity_n_side']}"] = ("upw_implicit",
+                                                                            counts)
+    times_w = []
+    pw_, hist_w = _upw_implicit_steps("upw_models:implicit:windowed", p1, grid, mats, mix,
+                                      cfg.replace(transfer="windowed"), isteps, times_w)
+    out_i, ok_i = _upw_parity(pf, pw_, h, "upw_models:implicit", 1e-2)
+    newton_f, newton_w = [x[0] for x in hist_f], [x[0] for x in hist_w]
+    ok_i = ok_i and newton_f == newton_w
+    implicit = dict(grid="x".join(map(str, grid.dims)), particles=p0.count, dt=cfg.dt,
+                    steps=isteps, ms_per_step=float(np.mean(times)),
+                    windowed_ms_per_step=float(np.mean(times_w)), newton_fused=newton_f,
+                    newton_windowed=newton_w, gmres_fused=[x[1] for x in hist_f],
+                    gmres_windowed=[x[1] for x in hist_w],
+                    converged=[x[5] for x in hist_f], launches=counts,
+                    yielded_share=_yielded(pf), parity=out_i)
+    yielded = explicit["yielded_share"] > 0.0 and implicit["yielded_share"] > 0.0
+    say(phase="upw_models", soil=UPW_SOIL, explicit=explicit, implicit=implicit,
+        phase_seconds=time.perf_counter() - t_phase, ok=ok and ok_i and yielded)
+    if not (ok and ok_i and yielded):
+        raise PhaseError(f"upw_models: explicit {explicit}, implicit {implicit}")
+
+
 def _recorded_calls(fn):
     """Run ``fn()`` with every fused_scatter / fused_gather call recorded in
     order: (launch key it counted under, kind, args, kwargs)."""
@@ -1721,8 +1866,8 @@ def _calls_roofline(grid, p, cfg, counts, steps, calls, spec, path, sum_abs_scal
 # DEM: discrete gradient, DEMConfig's defaults (Newton tol 1e-6, CG) at dt =
 # h/c, as tests/test_dem.py:127 uses.  Depth: warm-up and timed steps; the
 # parity legs at ``parity_n_side``².
-UP = dict(n_side=256, warm=1, steps=1, parity_steps=2, parity_n_side=64)
-DEM = dict(n_side=256, warm=1, steps=1, parity_steps=2, parity_n_side=128)
+UP = dict(n_side=256, warm=0, steps=1, parity_steps=1, parity_n_side=64, column_steps=1)
+DEM = dict(n_side=256, warm=0, steps=1, parity_steps=2, parity_n_side=128)
 C_SOLID = float(np.sqrt(1e7 / 1000.0))
 
 
@@ -2010,8 +2155,9 @@ def phase_up_dem_parity(device, kind):
 
 def _up_column_parity(device):
     """tests/test_upw.py::test_up_pallas_parity on the card: the column of
-    ``column_problem`` (its soil and fluid table, mixture densities), 5 u-p
-    steps on each engine from the same state, by pid."""
+    ``column_problem`` (its soil and fluid table, mixture densities),
+    ``UP["column_steps"]`` u-p steps (5 before the time limit pressed) on each engine from the
+    same state, by pid."""
     from nlpartsol_tpu_torch.formulations.explicit import to_slot_layout
     from nlpartsol_tpu_torch.formulations.up import UpConfig, up_step
 
@@ -2022,7 +2168,7 @@ def _up_column_parity(device):
     res = {}
     for transfer in ("fused", "windowed"):
         q = to_slot_layout(p, grid, cfg.active_box)
-        for i in range(5):
+        for i in range(UP["column_steps"]):
             q, dq = up_step(q, grid, mats, cfg.replace(transfer=transfer), body)
             _check_state(f"up_parity:column:{transfer}", q, dict(lost=dq["lost"]))
         res[transfer] = (_by_pid_fields(q, ("x", "pw")), bool(dq["converged"]))
@@ -2030,7 +2176,7 @@ def _up_column_parity(device):
     if not bool((pid_f == pid_w).all()):
         raise PhaseError("up_parity:column: particle sets differ")
     l_scale = max(1.0, float(lw.abs().max()))
-    out = dict(steps=5, particles=p.count, dx=float((xf - xw).abs().max()),
+    out = dict(steps=UP["column_steps"], particles=p.count, dx=float((xf - xw).abs().max()),
                dlambda=float((lf - lw).abs().max()), lambda_scale=l_scale,
                limits=dict(dx=1e-6, dlambda=1e-2 * l_scale), converged=[conv_f, conv_w])
     out["ok"] = (out["dx"] <= 1e-6 and out["dlambda"] <= 1e-2 * l_scale and conv_f and conv_w)
@@ -2200,17 +2346,17 @@ def _initial_model_state(name, row, n, dim):
     return bemi, bzz, eps, kappa
 
 
-def build_models(dim, n_side, device, frame=True):
+def build_models(dim, n_side, device, frame=True, strips=None):
     """The main path's problem (bench.py's in 2D, scripts/bench3d.py's in
     3D) with one strip of the particle block along x per kind of
-    ``MODEL_STRIPS``, held in a rigid frame (FRAME_LAYERS; ``frame=False``
-    leaves bench.py's free surfaces);
+    ``strips`` (default ``MODEL_STRIPS``), held in a rigid frame
+    (FRAME_LAYERS; ``frame=False`` leaves bench.py's free surfaces);
     dt = 0.25·h/c for the fastest wave speed among the kinds.  Returns the
     problem and the initial eps of each strip."""
     from nlpartsol_tpu_torch.models import materials as M
 
     grid, p, _, cfg, h = build_problem(dim, n_side, device)
-    strips = MODEL_STRIPS[dim]
+    strips = MODEL_STRIPS[dim] if strips is None else strips
     rows = [M.material(kind=name, **params) for name, params in strips]
     mats = M.material_table(rows, device=device)
     x0 = p.x[:, 0].cpu().numpy()
@@ -2348,6 +2494,132 @@ def phase_models_parity(grid, p0, mats, cfg, h):
         windowed_ms_per_step=1e3 * seconds / steps, ok=ok)
     if not ok:
         raise PhaseError(f"{label}: rel_dx {rel_dx}, rel_dv {rel_dv}, eps gaps {gaps}")
+
+
+# The implicit step with the return mappings (its J·v is forward mode
+# through them, with the spectral tangent of ops/tensor.py::isotropic_map):
+# bench_implicit.py's problem (``IMPLICIT``) with these kinds' strips of
+# MODEL_STRIPS in the models phases' rigid frame (the frictional strips
+# confined), dt = 2h/c
+IMPLICIT_MODEL_KINDS = {2: ("Von-Mises", "Drucker-Prager", "Matsuoka-Nakai", "Hencky"),
+                        3: ("Drucker-Prager", "Hencky")}
+IMPLICIT_MODELS = {2: dict(warm=1, steps=1, parity_n_side=64, parity_steps=2),
+                   3: dict(warm=1, steps=1)}
+# Newton tolerance of these phases: with the plastic strips the residual's
+# float32 floor is 1.0-1.6e-5 of ‖R₀‖ on both engines at 64², so at the
+# default 1e-5 each loop ends by the stall rule after a count that rounding
+# sets (6 or 7 a step, unequal between the engines); at 1e-4 each ends by
+# its tolerance, 3 iterations a step on both (an H100 80GB HBM3 at 700 W,
+# tests/torch_implicit_models_probe.py newton-tol)
+IMPLICIT_MODELS_NEWTON_TOL = 1e-4
+
+
+def build_implicit_models(dim, device, n_side=None):
+    """``build_models`` on bench_implicit.py's problem with the strips of
+    IMPLICIT_MODEL_KINDS, and the implicit phases' Newton-CG settings."""
+    from nlpartsol_tpu_torch.formulations.implicit import ImplicitConfig
+
+    strips = tuple(s for s in MODEL_STRIPS[dim] if s[0] in IMPLICIT_MODEL_KINDS[dim])
+    grid, p, mats, cfg_e, h, eps0 = build_models(dim, n_side or IMPLICIT[dim]["n_side"],
+                                                 device, strips=strips)
+    cfg = ImplicitConfig(
+        dt=2.0 * h / np.sqrt(1e7 / 1000.0), lme_params=cfg_e.lme_params, kinds=cfg_e.kinds,
+        active_box=cfg_e.active_box, cg_maxiter=60, newton_maxiter=10, forcing="ew",
+        newton_tol=IMPLICIT_MODELS_NEWTON_TOL, transfer="fused")
+    return grid, p, mats, cfg, h, eps0, strips
+
+
+def _implicit_launches(dim, steps, n, L, dirichlet):
+    """The launch formula of formulations/implicit.py's docstring (one more
+    G-scatter a step for the reactions of a Dirichlet mask)."""
+    sc, ga = f"lme_scatter{dim}d", f"lme_gather{dim}d"
+    return {f"{sc}:solve+gnorm": steps, f"{ga}:grad": 3 * steps + 7 * n + 2 * L,
+            f"{sc}:G": steps * (1 + int(dirichlet)) + 7 * n + 2 * L, f"{ga}:N": steps}
+
+
+def phase_implicit_models(device, dim):
+    """The implicit step with plastic and Hencky strips on the fused
+    kernels: warm-up, then timed steps with the launch counts and host syncs
+    set to 0 just before and read just after; every step converged, nothing
+    lost, every active field finite, launches held to the formula, each
+    plastic kind yielded somewhere; host ms of one residual and one J·v."""
+    from nlpartsol_tpu_torch.formulations.explicit import to_slot_layout
+    from nlpartsol_tpu_torch.formulations.implicit import implicit_step
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+    from nlpartsol_tpu_torch.ops import solvers
+
+    spec = IMPLICIT_MODELS[dim]
+    label = "implicit_models" + _suffix(dim)
+    t_phase = time.perf_counter()
+    grid, p0, mats, cfg, h, eps0, strips = build_implicit_models(dim, device)
+    p1, _ = _implicit_steps(label + ":warm-up", to_slot_layout(p0, grid, cfg.active_box), grid,
+                            mats, cfg, spec["warm"])
+    ft.reset_launch_counts()
+    solvers.reset_host_syncs()
+    times = []
+    p2, hist = _implicit_steps(label, p1, grid, mats, cfg, spec["steps"], times)
+    counts, syncs = dict(ft.launch_counts), dict(solvers.host_syncs)
+    steps = spec["steps"]
+    n_tot, l_tot = sum(h_[0] for h_ in hist), sum(h_[1] for h_ in hist)
+    want = _implicit_launches(dim, steps, n_tot, l_tot, grid.dirichlet_mask is not None)
+    if counts != want:
+        raise PhaseError(f"{label}: launch counts {counts}, expected {want}")
+    _check_models_state(label, p2, dict(lost=torch.zeros((), dtype=torch.int32)))
+    shares = _plastic_shares(p2, eps0, strips)
+    costs = _residual_costs(lambda: implicit_step(
+        p2, grid, mats, cfg.replace(newton_maxiter=0),
+        torch.zeros(grid.dim, dtype=p2.x.dtype, device=p2.x.device)), reps=2)
+    seconds = 1e-3 * sum(times)
+    say(phase=label, grid="x".join(map(str, grid.dims)), particles=p0.count,
+        kinds=[name for name, _ in strips], dt=cfg.dt, warmup_steps=spec["warm"], steps=steps,
+        ms_per_step=1e3 * seconds / steps, step_ms=times,
+        newton_iters=[h_[0] for h_ in hist], cg_iters=[h_[1] for h_ in hist],
+        newton_residual=[h_[3] for h_ in hist], converged=True, lost=0, finite=True,
+        launches=counts, launches_expected=want, host_syncs=syncs,
+        host_ms_per_residual=costs["residual_ms"], host_ms_per_jv=costs["jv_ms"],
+        plastic_share=shares, phase_seconds=time.perf_counter() - t_phase)
+    unyielded = {k: v for k, v in shares.items() if k in PLASTIC_KINDS and not v > 0.0}
+    if unyielded:
+        raise PhaseError(f"{label}: plastic kinds that never yielded: {unyielded}")
+    PATH_LAUNCHES[label] = ("implicit", counts)
+
+
+def phase_implicit_models_parity(device):
+    """IMPLICIT_MODELS' parity steps at its smaller width from the same state
+    through the fused kernels and the windowed engine on the card, by pid:
+    rel_dx < 1e-3, rel_dv < 1e-2, equal Newton iterations, per kind the eps
+    gap over its largest value within MODELS_EPS_GAP."""
+    from nlpartsol_tpu_torch.formulations.explicit import to_slot_layout
+
+    spec = IMPLICIT_MODELS[2]
+    label = "implicit_models_parity"
+    grid, p0, mats, cfg, h, _, strips = build_implicit_models(2, device, spec["parity_n_side"])
+    p1 = to_slot_layout(p0, grid, cfg.active_box)
+    steps = spec["parity_steps"]
+    pf, hist_f = _implicit_steps(label + ":fused", p1, grid, mats, cfg, steps)
+    pw, hist_w = _implicit_steps(label + ":windowed", p1, grid, mats,
+                                 cfg.replace(transfer="windowed"), steps)
+    for pp, tag in ((pf, "fused"), (pw, "windowed")):
+        _check_models_state(f"{label}:{tag}", pp, dict(lost=torch.zeros((), dtype=torch.int32)))
+    rel_dx, rel_dv, (mid_f, mid_w), (eps_f, eps_w) = _parity(
+        pf, pw, h, label, names=("x", "v", "mat_id", "eps"))
+    if not bool((mid_f == mid_w).all()):
+        raise PhaseError(f"{label}: material ids differ by pid")
+    gaps = {}
+    for i, (name, _) in enumerate(strips):
+        sel = mid_w == i
+        scale = max(float(eps_w[sel].abs().max()), 1e-30)
+        gaps[name] = float((eps_f[sel] - eps_w[sel]).abs().max()) / scale
+    newton_f, newton_w = [h_[0] for h_ in hist_f], [h_[0] for h_ in hist_w]
+    ok = (rel_dx < 1e-3 and rel_dv < 1e-2 and newton_f == newton_w
+          and max(gaps.values()) < MODELS_EPS_GAP)
+    say(phase=label, grid="x".join(map(str, grid.dims)), steps=steps, rel_dx=rel_dx,
+        rel_dv=rel_dv, limit_dx=1e-3, limit_dv=1e-2, newton_fused=newton_f,
+        newton_windowed=newton_w, cg_fused=[h_[1] for h_ in hist_f],
+        cg_windowed=[h_[1] for h_ in hist_w], eps_gap=gaps, limit_eps_gap=MODELS_EPS_GAP, ok=ok)
+    if not ok:
+        raise PhaseError(f"{label}: rel_dx {rel_dx}, rel_dv {rel_dv}, Newton {newton_f} vs "
+                         f"{newton_w}, eps gaps {gaps}")
 
 
 MODELS_FN_ROWS = 65536
@@ -2547,6 +2819,245 @@ def phase_models_fn(device):
         results=results)
     if failed:
         raise PhaseError(f"models_fn: outside tolerance: {failed}")
+
+
+# models_jv: the stress update's J·v (the implicit steps' tangent, forward
+# mode with the spectral tangent of ops/tensor.py::isotropic_map) for every
+# kind, JV_ROWS states a kind at tests/test_torch_tangent.py's three state
+# families, 2D and 3D: the card's float32 J·v against a float64 central
+# difference on the card (steps h and h/2 as in that test; rows where the
+# two differ by more than JV_KINK straddle a return mapping's branch and are
+# counted, not compared), and against the CPU's float32 J·v on the same
+# inputs (every JV_CPU_STRIDE-th row; the two torch builds), on the rows of
+# neither a kink nor a branch (one precision or build yielding where the
+# other did not)
+JV_ROWS = 4096
+JV_CPU_STRIDE = 32
+JV_KINK = 1e-4
+# the one-sided differences' largest gap on a smooth row: h·f''/f' on strains
+# of 1e-3 is about 1e-3, a kink's jump in slope of the order of 1
+JV_ONE_SIDED = 5e-2
+JV_KINDS = tuple(MODEL_STRIPS[2]) + (("Neo-Hookean-Wriggers", SOLID),
+                                     ("Saint-Venant-Kirchhoff", SOLID),
+                                     ("Solid-Rigid", dict(rho0=1000.0)))
+# per row, the largest difference over each field's row scale (floored at
+# 1e-3 of its largest over all rows), then its maximum, 99th percentile and
+# median over the compared rows: float32 against the float64 difference, and
+# card float32 against CPU float32.  Four times the CPU's own float32 spread
+# against the float64 difference over these states at 2,048 rows (the
+# rehearsal of this phase on the CPU, tests/torch_implicit_models_probe.py
+# rehearse-models-jv), the largest over the kinds of
+# a class and over 2D and 3D.  By percentiles: the frictional family, whose
+# float32 Newton scatters on a few rows (as in MODELS_FN_TOL), and von
+# Mises, whose principal back stress makes its update depend on the order
+# of the eigenvalues: near coincident ones its tangent grows like
+# Δback/gap, where float32 and float64 part (the worst row 0.74).  Card
+# against CPU, the frictional family's q99 is 4.5× its worst reading, 1.1e-3
+# (Lade-Duncan, 3D, general states, on an H100 80GB HBM3 at 700 W): its float32 Newton
+# runs its 30 iterations on each build without meeting its tolerance, and
+# the J·v follows each build's own iterates
+JV_TOL = {"fd": dict(max=2e-2, q99=4e-3, median=4e-5),
+          "fd_frictional": dict(q99=5e-4, median=4e-5),
+          "fd_von_mises": dict(q99=4e-2, median=1e-4),
+          "cpu": dict(max=2e-2, q99=4e-3, median=4e-5),
+          "cpu_frictional": dict(q99=5e-3, median=4e-5),
+          "cpu_von_mises": dict(q99=4e-2, median=1e-4)}
+JV_STATES = ("general", "diagonal", "rest")
+
+
+def _jv_inputs(name, row, dim, state, n, seed):
+    """tests/test_torch_tangent.py's states for ``n`` rows of one kind:
+    (history and fixed kinematics, X0, V); the update is a function of X:
+    ΔF = I + X, F = ΔF·F_n, Ḟ = Ḟ_n + X."""
+    rng = np.random.default_rng(seed)
+    eye = np.eye(dim)
+    fr = name in FRICTIONAL_KINDS
+    vol = -2e-3 if fr else 0.0
+    lam0 = rng.uniform(0.5, 1.5, n) if state == "general" else np.ones(n)
+    eps = lam0 if fr else np.zeros(n)
+    if name == "Drucker-Prager":
+        kappa = row["kappa0"] * np.sqrt(1.0 + eps / row["plastic_strain_0"])
+    else:
+        kappa = row.get("a1_borja", 0.0) * lam0  # κ̂_φ = a1·Λ (a2 = a3 = 0)
+    if state == "general":
+        F_n = eye + 2e-3 * rng.standard_normal((n, dim, dim))
+        e = 1e-3 * rng.standard_normal((n, dim, dim)) * (2.0 if fr else 1.0)
+        bemi = np.expm1(2.0 * (0.5 * (e + np.swapaxes(e, -1, -2)) + vol * eye))
+        X0 = 1e-3 * rng.standard_normal((n, dim, dim))
+        if not fr:
+            eps = rng.uniform(0.0, 0.01, n)
+        back = 1e2 * rng.standard_normal((n, 3))
+        dFdt = 0.3 * rng.standard_normal((n, dim, dim))
+    else:
+        F_n = np.broadcast_to(eye, (n, dim, dim))
+        bemi = np.broadcast_to(np.expm1(2.0 * vol) * eye, (n, dim, dim))
+        X0 = np.zeros((n, dim, dim))
+        if state == "diagonal":
+            X0[:] = np.diag([1.0, -1.0, 0.0][:dim]) * (1e-3 if fr else 1e-2)
+        back, dFdt = np.zeros((n, 3)), np.zeros((n, dim, dim))
+    arrays = dict(F_n=F_n, dFdt=dFdt, bemi=bemi, bemi_zz=np.full(n, np.expm1(2.0 * vol) *
+                                                                 (dim == 2)),
+                  eps=eps, kappa=kappa, back_stress=back)
+    return arrays, X0, rng.standard_normal((n, dim, dim))
+
+
+def _jv_fn(arrays, table, index, code, dev, dt):
+    """The update as a function of X on ``dev`` in ``dt``, its outputs
+    concatenated by field (in 3D without the zz channels, the third
+    principal values) and the column slice of each field."""
+    from nlpartsol_tpu_torch.models import dispatch
+
+    t = {k: torch.as_tensor(np.ascontiguousarray(v), dtype=dt, device=dev)
+         for k, v in arrays.items()}
+    dim = t["F_n"].shape[-1]
+    n = t["eps"].shape[0]
+    mats = table(dev, dt)
+    mid = torch.full((n,), index, dtype=torch.int32, device=dev)
+    eye = torch.eye(dim, dtype=dt, device=dev)
+    names = ("tau", "tau_zz", "bemi", "bemi_zz", "eps", "kappa", "back_stress")
+    names = tuple(k for k in names if dim == 2 or not k.endswith("_zz"))
+    widths = dict(tau=dim * dim, bemi=dim * dim, back_stress=3)
+    cols, at = {}, 0
+    for k in names:
+        cols[k] = slice(at, at + widths.get(k, 1))
+        at += widths.get(k, 1)
+
+    def f(X):
+        DF = eye + X
+        cs = dispatch.stress_integration(
+            F_n1=DF @ t["F_n"], DF=DF, dFdt_n1=t["dFdt"] + X, bemi=t["bemi"],
+            bemi_zz=t["bemi_zz"], eps=t["eps"], kappa=t["kappa"],
+            back_stress=t["back_stress"], mat_id=mid, mats=mats, kinds=(code,))
+        return torch.cat([getattr(cs, k).reshape(n, -1) for k in names], dim=1)
+
+    return f, cols
+
+
+def _jv_row_errors(a, b, primal, cols, noise):
+    """Per row, the largest over fields of |a − b| beyond ``noise`` over the
+    field's row scale (its largest |b| in the row, floored at 1e-3 of the
+    field's largest |b| and |primal| over all rows, a zz channel's with its
+    tensor's: the two are rounded together)."""
+    err = torch.zeros(a.shape[0], dtype=torch.float64, device=a.device)
+    for name, sl in cols.items():
+        ref = b[:, sl].abs()
+        group = [sl] + ([cols[name[:-3]]] if name.endswith("_zz") else [])
+        floor = 1e-3 * max(max(float(b[:, g].abs().max()), float(primal[:, g].abs().max()))
+                           for g in group)
+        floor = max(floor, 1e-300)
+        excess = torch.clamp((a[:, sl] - b[:, sl]).abs() - noise[..., sl], min=0.0)
+        err = torch.maximum(err, excess.amax(1) / torch.clamp(ref.amax(1), min=floor))
+    return err
+
+
+def _stats(err):
+    if err.numel() == 0:
+        return dict(max=0.0, q99=0.0, median=0.0)
+    err = err.double().cpu()
+    return dict(max=float(err.max()), q99=float(torch.quantile(err, 0.99)),
+                median=float(err.median()))
+
+
+def jv_compare(dim, name, row, table, index, state, device, seed):
+    """One kind at one state family: the card's float32 J·v against the
+    float64 central difference on the card and against the CPU's float32
+    J·v.  Returns the two error statistics, the rows left out (kinks and
+    float32 branches) and the non-finite rows of the card's J·v."""
+    from nlpartsol_tpu_torch.ops import solvers
+
+    code = row["kind"]
+    # the inputs rounded to float32 once, so that both precisions see the
+    # same values and differ only in their arithmetic
+    arrays, X0, V = _jv_inputs(name, row, dim, state, JV_ROWS, seed)
+    arrays = {k: np.asarray(v, np.float32).astype(np.float64) for k, v in arrays.items()}
+    X0, V = (np.asarray(a, np.float32).astype(np.float64) for a in (X0, V))
+    f32, cols = _jv_fn(arrays, table, index, code, device, torch.float32)
+    X32, V32 = (torch.as_tensor(a, dtype=torch.float32, device=device) for a in (X0, V))
+    primal32, jv = solvers.jvp(f32, X32, V32)
+    primal32, jv = primal32.double(), jv.double()
+    f64, _ = _jv_fn(arrays, table, index, code, device, torch.float64)
+    X64, V64 = (torch.as_tensor(a, dtype=torch.float64, device=device) for a in (X0, V))
+    primal = f64(X64)
+    plastic = name in PLASTIC_KINDS
+    fluid = "Fluid" in name
+    h = ((1e-6 if state == "general" else 1e-5) if plastic
+         else 1e-8 if state == "rest" and fluid else 1e-4)
+
+    def fd(step):
+        up, down = f64(X64 + step * V64), f64(X64 - step * V64)
+        bound = 1e-15 * torch.maximum(up.abs(), down.abs()).amax(0) / step
+        return (up - down) / (2.0 * step), bound
+
+    (fd1, n1), (fd2, n2) = fd(h), fd(0.5 * h)
+    none = torch.zeros(primal.shape[1], dtype=torch.float64, device=primal.device)
+    # a kink: the two central differences disagree, or the one-sided ones
+    # do (a kink nearer than h/2 leaves the central ones equal); a branch:
+    # the float32 update yielded where the float64 one did not, or the
+    # other way round
+    smooth = _jv_row_errors(fd1, fd2, primal, cols, n1 + n2) <= JV_KINK
+    if plastic:
+        ahead = (f64(X64 + h * V64) - primal) / h
+        behind = (primal - f64(X64 - h * V64)) / h
+        smooth &= _jv_row_errors(ahead, behind, primal, cols, 2.0 * n1) <= JV_ONE_SIDED
+    eps_in = torch.as_tensor(arrays["eps"], device=primal.device)
+    e32, e64 = primal32[:, cols["eps"]][:, 0], primal[:, cols["eps"]][:, 0]
+    smooth &= (e32 != eps_in.to(torch.float32).double()) == (e64 != eps_in)
+    err_fd = _jv_row_errors(jv, fd2, primal, cols, n2 + 2.0 * (fd1 - fd2).abs() / 3.0)
+    finite = torch.isfinite(jv).all(1)
+    stride = JV_CPU_STRIDE
+    sub = {k: v[::stride] for k, v in arrays.items()}
+    fc, _ = _jv_fn(sub, table, index, code, "cpu", torch.float32)
+    primal_cpu, jv_cpu = solvers.jvp(fc, torch.as_tensor(X0[::stride], dtype=torch.float32),
+                                     torch.as_tensor(V[::stride], dtype=torch.float32))
+    primal_cpu, jv_cpu = primal_cpu.double(), jv_cpu.double()
+    card, p64 = jv[::stride].cpu(), primal[::stride].cpu()
+    e_cpu, e_card = primal_cpu[:, cols["eps"]][:, 0], e32[::stride].cpu()
+    same = smooth[::stride].cpu() & torch.isfinite(card).all(1) & (
+        (e_cpu != eps_in[::stride].cpu()) == (e_card != eps_in[::stride].cpu()))
+    err_cpu = _jv_row_errors(card, jv_cpu, p64, cols, none.cpu())
+    return (_stats(err_fd[smooth & finite]), _stats(err_cpu[same]), int((~smooth).sum()),
+            int((~finite).sum()))
+
+
+def phase_models_jv(device):
+    """The stress update's J·v for every kind of JV_KINDS at the three state
+    families, 2D and 3D (JV_ROWS states each): finite on every row, within
+    JV_TOL of the float64 central difference on the card on the rows away
+    from a kink (kinks only in a plastic kind's rows away from rest, at
+    most a quarter of them), and within JV_TOL of the CPU's float32 J·v."""
+    from nlpartsol_tpu_torch.models import materials as M
+
+    rows = [M.material(kind=name, **params) for name, params in JV_KINDS]
+
+    def table(dev, dt):
+        return M.MaterialTable(**{k: torch.as_tensor(
+            np.asarray([r[k] for r in rows]), dtype=torch.int32 if k == "kind" else dt,
+            device=dev) for k in rows[0]})
+
+    t0 = time.perf_counter()
+    results, failed = {}, {}
+    for dim in (2, 3):
+        for i, ((name, _), row) in enumerate(zip(JV_KINDS, rows)):
+            fr = ("_frictional" if name in FRICTIONAL_KINDS
+                  else "_von_mises" if name == "Von-Mises" else "")
+            for j, state in enumerate(JV_STATES):
+                st_fd, st_cpu, kinks, non_finite = jv_compare(
+                    dim, name, row, table, i, state, device, seed=1000 * dim + 10 * i + j)
+                key = f"{name}/{dim}d/{state}"
+                results[key] = dict(fd=st_fd, cpu=st_cpu, kink_rows=kinks,
+                                    non_finite_rows=non_finite)
+                bad = {f"{which}.{q}": st[q] for which, st in (("fd", st_fd), ("cpu", st_cpu))
+                       for q, lim in JV_TOL[which + fr].items() if st[q] > lim}
+                plastic = name in PLASTIC_KINDS
+                if non_finite or (kinks and (state == "rest" or not plastic)) or \
+                        kinks > JV_ROWS // 4:
+                    bad.update(kink_rows=kinks, non_finite_rows=non_finite)
+                if bad:
+                    failed[key] = bad
+    say(phase="models_jv", rows_per_kind=JV_ROWS, states=list(JV_STATES), kink=JV_KINK,
+        tol=JV_TOL, results=results, seconds=time.perf_counter() - t0)
+    if failed:
+        raise PhaseError(f"models_jv: outside tolerance: {failed}")
 
 
 def phase_profile(grid, p1, mats, cfg, label="profile"):
@@ -2996,6 +3507,16 @@ _SOIL_WATER = ("Define-Material (idx=0, Model=Neo-Hookean-Wriggers) {\n"
                "    Reference-Volume-Fraction-Fluid=0.4\n}\n")
 _FRACTURE_DECK_MATERIAL = ("Define-Material (idx=0, Model=Neo-Hookean-Wriggers) {\n"
                            "    E=1e7\n    nu=0.3\n    rho=1000\n    Ceps=1.5\n    Gf=1e-3\n}\n")
+_DRUCKER_PRAGER_BODY = ("Model=Drucker-Prager) {\n    E=1e7\n    nu=0.3\n    rho={rho}\n"
+                        "    Yield-stress=2e3\n    Friction-angle=30\n    Dilatancy-angle=10\n"
+                        "    Hardening-exponent=2\n    Reference-plastic-strain=0.01\n}\n")
+_DRUCKER_PRAGER_DECK = "Define-Material (idx=0, " + _DRUCKER_PRAGER_BODY.replace("{rho}", "1000")
+_VON_MISES_DECK = ("Define-Material (idx=0, Model=Von-Mises) {\n    E=1e7\n    nu=0.3\n"
+                   "    rho=1000\n    Yield-stress=1e3\n    Hardening-Modulus=1e5\n}\n")
+_HENCKY_DECK = "Define-Material (idx=0, Model=Hencky) {\n    E=1e7\n    nu=0.3\n    rho=1000\n}\n"
+_SOIL_WATER_DRUCKER_PRAGER = _SOIL_WATER.replace(
+    "Model=Neo-Hookean-Wriggers) {\n    E=1e7\n    nu=0.3\n    rho=2700\n}\n",
+    _DRUCKER_PRAGER_BODY.replace("{rho}", "2700"))
 DECK_ROUTES = {
     # name: (deck options, CLI formulation flag, the engine of the JAX rule);
     # the option ``transfer`` goes to the CLI's --transfer (default auto)
@@ -3037,14 +3558,29 @@ DECK_ROUTES = {
     "unstructured_fem": (dict(background="triangles", shapefun="FEM"), "--FORMULATION-U",
                          "scatter"),
     "unstructured_lme": (dict(background="triangles"), "--FORMULATION-U", "scatter"),
+    # the return mappings and Hencky on the implicit schemes (their J·v is
+    # forward mode through the models)
+    "newmark_drucker_prager": (dict(scheme="Newmark-beta-Finite-Strains", cfl=1.0,
+                                    materials=_DRUCKER_PRAGER_DECK), "--FORMULATION-U", "fused"),
+    "static_von_mises": (dict(scheme="Static", cfl=1.0, materials=_VON_MISES_DECK),
+                         "--FORMULATION-U", "fused"),
+    "upw_newmark_drucker_prager": (dict(materials=_SOIL_WATER_DRUCKER_PRAGER,
+                                        analysis="Soil-Water-Coupling-One-Layer",
+                                        scheme="Newmark-beta", cfl=0.5,
+                                        solver_props="    TOL-Newmark-beta=1e-2\n"),
+                                   "--FORMULATION-Upw", "fused"),
+    "up_hencky": (dict(scheme="Newmark-beta", cfl=1.0, materials=_HENCKY_DECK,
+                       solver_props="    TOL-Newmark-beta=1e-3\n"), "--FORMULATION-Up", "fused"),
+    "dem_hencky": (dict(scheme="Discrete-Energy-Momentum", cfl=1.0, materials=_HENCKY_DECK),
+                   "--FORMULATION-U", "fused"),
 }
 DECK_ROUTE_STEPS = 3
 GOLDEN_DECKS = ("dem_bar", "dem_svk_bar", "dem_bar3d")
 
 
-def _route_deck(directory, dim=2, cel=100.0, **kw):
+def _route_deck(directory, dim=2, cel=100.0, steps=DECK_ROUTE_STEPS, **kw):
     """A body on the floor of a 16² (3D 15³) background under gravity, its
-    bottom nodes held."""
+    bottom nodes held, for ``steps`` steps."""
     cells = 16 if dim == 2 else 15
     h = 1.0 / cells
     body = (8,) * (dim - 1) + (6,)
@@ -3052,7 +3588,7 @@ def _route_deck(directory, dim=2, cel=100.0, **kw):
     if "materials" in kw:
         cel = float(np.sqrt((2.2e7 / 0.4) / (0.6 * 2700 + 0.4 * 1000)))
     return write_deck(directory, (cells,) * dim, h, body, origin, cel=cel,
-                      steps=DECK_ROUTE_STEPS, gravity=-9.81, fix_bottom=True, **kw)
+                      steps=steps, gravity=-9.81, fix_bottom=True, **kw)
 
 
 def phase_decks(device):
@@ -3612,7 +4148,7 @@ def phase_shapefuns(device):
 # the scatter engine (ops/transfer.py::ScatterEngine, index_add over the
 # particles' own order, no slot layout) on every step it now takes, at 128²
 # against the windowed engine on the card, by pid
-SCATTER = dict(n_side=128, steps=2, upw_implicit_steps=1, traction_steps=8)
+SCATTER = dict(n_side=128, steps=1, upw_implicit_steps=1, traction_steps=8)  # steps 2 → 1
 
 
 def _engine_pair(label, h, fn, names=("x", "v"), newton=False):
@@ -3776,7 +4312,7 @@ FEMESH3D = dict(n=32, perturb=0.2, seed=0, warm=1, steps=4)
 # Q4 on the scatter phase's unperturbed 128² node grid against the
 # structured grid on the windowed engine (same particles), and the T3 bar
 FEMESH_PARITY = dict(n_side=128, steps=8, bar_error=0.12, implicit_steps=3)
-FEMESH_SCATTER_STEPS = 2
+FEMESH_SCATTER_STEPS = 1  # 2 before the time limit pressed
 _KUHN = [[0, 1, 2, 6], [0, 2, 3, 6], [0, 3, 7, 6], [0, 7, 4, 6], [0, 4, 5, 6], [0, 5, 1, 6]]
 
 
@@ -4224,7 +4760,9 @@ def main():
     ap.add_argument("--phases", default="kernels,main_path,parity,roofline,implicit,"
                     "implicit_parity,kernels3d,main_path3d,parity3d,roofline3d,implicit3d,"
                     "implicit_parity3d,upw,upw_parity,upw_implicit,upw_implicit_parity,up,"
-                    "up_parity,dem,dem_parity,models_fn,models,models_parity,models3d,deck,decks,"
+                    "up_parity,dem,dem_parity,models_fn,models,models_parity,models3d,"
+                    "implicit_models,implicit_models_parity,implicit_models3d,upw_models,"
+                    "models_jv,deck,decks,"
                     "fracture,fracture3d,fracture_implicit,shapefuns,scatter,femesh,femesh3d,"
                     "femesh_parity,femesh_scatter,probes,large3d,large",
                     help="comma-separated phases to run after device and build")
@@ -4306,6 +4844,19 @@ def main():
         phase_models_parity(grid, p0, mats, cfg, h)
         del p0
         torch.cuda.empty_cache()
+    for dim in (2, 3):
+        if "implicit_models" + _suffix(dim) in phases:
+            phase_implicit_models(device, dim)
+            torch.cuda.empty_cache()
+        if dim == 2 and "implicit_models_parity" in phases:
+            phase_implicit_models_parity(device)
+            torch.cuda.empty_cache()
+    if "upw_models" in phases:
+        phase_upw_models(device)
+        torch.cuda.empty_cache()
+    if "models_jv" in phases:
+        phase_models_jv(device)
+        torch.cuda.empty_cache()
     if "deck" in phases:
         phase_deck(device)
         torch.cuda.empty_cache()
@@ -4337,6 +4888,10 @@ def main():
             phase_large(device, dim)
             torch.cuda.empty_cache()
 
+    for r in rows:
+        key, _, tag = r["name"].partition("@")
+        r["launches_by_path"] = {path: n[key] for path, (path_tag, n) in PATH_LAUNCHES.items()
+                                 if tag.split(" ")[0] == path_tag and key in n}
     say(phase="done", seconds=time.perf_counter() - T_START)
     print(smi, flush=True)
     say(kernels=rows)

@@ -9,17 +9,9 @@ from __future__ import annotations
 
 import torch
 
-from ..models import materials as M
 from ..ops import transfer, windowed
 from ..shapefun import alme, fem, femesh, gimp, lme
 from ..types import Grid
-
-# The kinds whose stress the implicit, u-p, u-pw and DEM steps take: their
-# J·v differentiates the stress update in forward mode, and a return
-# mapping's forward-mode derivative is ROADMAP.md queue 1 item 12b.
-_HYPERELASTIC_KINDS = (M.SOLID_RIGID, M.SAINT_VENANT_KIRCHHOFF, M.NEO_HOOKEAN)
-_KIND_LABEL = {code: name for name, code in M.KIND_NAMES.items()}
-
 
 def check_background(cfg, grid):
     """A FEMesh takes ``transfer='scatter'`` only: the other engines need a
@@ -77,19 +69,6 @@ def check_shapefun(cfg):
         raise ValueError(
             f"the fused transfer implements LME only, not shapefun '{cfg.shapefun}': "
             "use transfer='windowed'"
-        )
-
-
-def check_hyperelastic_kinds(cfg, step: str):
-    """Refuse the material kinds that ``step`` does not take yet (an unknown
-    code is left to the dispatch's ``ValueError``)."""
-    waiting = sorted(k for k in set(cfg.kinds)
-                     if k in _KIND_LABEL and k not in _HYPERELASTIC_KINDS)
-    if waiting:
-        names = ", ".join(f"{k} ({_KIND_LABEL[k]})" for k in waiting)
-        raise NotImplementedError(
-            f"material kind {names} on the {step} step is not ported yet: "
-            "ROADMAP.md queue 1, item 12b, 'Remaining models'"
         )
 
 

@@ -8,7 +8,7 @@ midpoint scheme solved by Newton iteration on the nodal velocity V = v_{n+1}:
   C_n, C_{n+1}, ΔC = C_{n+1} − C_n, F_mid = (F_n + F_{n+1})/2
   S* = S(F_mid) + 2·(ΔW − ½·S(F_mid):ΔC)/(ΔC:ΔC)·ΔC   (Gonzalez's discrete
        gradient: S*:ΔC/2 = W_{n+1} − W_n exactly), S(F_mid) = sym(F_mid⁻¹·P),
-       P = ∂W/∂F at F_mid by reverse-mode autograd
+       P = ∂W/∂F at F_mid (reverse-mode autograd; Hencky's τ·F⁻ᵀ)
   R_A = m_A·(V − v_n)/Δt + Σ_p V0·P*·GRAD_A − m_A·b,  P* = F_mid·S*,
        GRAD_A = F_nᵀ·∇N_A
 
@@ -40,10 +40,10 @@ formulations/implicit.py):
 line-search residuals and the re-evaluated one; 2L: one J·v per CG
 iteration; the 3 of the gathers: r₀, and ∇dU and ∇(V − Vₙ) at the end.)
 
-Not ported yet (each raises ``NotImplementedError`` naming its item of
-ROADMAP.md queue 1): material kinds other than Neo-Hookean,
-Saint-Venant-Kirchhoff and Solid-Rigid (item 12b),
-``axis_name``/``rebin_mode='none'`` (item 15).
+Every material kind of the dispatch runs (``stress_mode='average-strain'``
+takes Neo-Hookean and Saint-Venant-Kirchhoff only, as in the JAX package).
+Not ported yet (raises ``NotImplementedError`` naming its item of
+ROADMAP.md queue 1): ``axis_name``/``rebin_mode='none'`` (item 15).
 On an unstructured ``FEMesh`` (shapefun/femesh.py) the step runs on the
 scatter engine only; 'windowed' and 'fused' raise ``ValueError``.
 ``transfer='binned'`` is on the do-not-port list (ROADMAP.md queue 2) and
@@ -61,7 +61,7 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from ..models import dispatch as con
-from ..models import materials as M
+from ..models import hyperelastic, materials as M
 from ..models.materials import MaterialTable, lame_parameters
 from ..ops import fused_transfer as ft
 from ..ops import solvers, windowed
@@ -70,8 +70,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import alme, lme
 from ..types import Grid, Particles
 from . import kinematics as kin
-from .common import (binned_refused, check_background, check_hyperelastic_kinds,
-                     check_shapefun, found_lost, make_engine, shapefun_eval)
+from .common import (binned_refused, check_background, check_shapefun, found_lost,
+                     make_engine, shapefun_eval)
 from .explicit import _bin_to_slots, to_slot_layout
 from .implicit import _det_clamped
 
@@ -123,7 +123,6 @@ def _check_supported(cfg: DEMConfig, p: Particles, grid):
         raise later("rebin_mode='none'", 15, "Multi-device")
     if cfg.rebin_mode not in ("local", "global"):
         raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")
-    check_hyperelastic_kinds(cfg, "DEM")
     check_shapefun(cfg)
     if cfg.transfer == "binned":
         raise binned_refused()
@@ -140,8 +139,8 @@ def _check_supported(cfg: DEMConfig, p: Particles, grid):
 
 
 def _strain_energy(F_n1, p, mats, kinds):
-    """Batched W(F) for hyperelastic kinds (the models return the
-    potential)."""
+    """Batched W(F): the models return the potential (0.5·T:E_h for the
+    plastic kinds, 0 for the fluids and the rigid kind)."""
     cs = con.stress_integration(
         F_n1=F_n1,
         DF=torch.eye(F_n1.shape[-1], dtype=F_n1.dtype, device=F_n1.device).expand(F_n1.shape),
@@ -150,19 +149,40 @@ def _strain_energy(F_n1, p, mats, kinds):
     return cs.W
 
 
+# The kinds whose W does not read F: the plastic models take ΔF = I and the
+# history in _strain_energy, so their ∂W/∂F is 0, as in the JAX package.
+_W_WITHOUT_F = (M.VON_MISES, M.DRUCKER_PRAGER, M.MATSUOKA_NAKAI, M.LADE_DUNCAN,
+                M.MODIFIED_LADE_DUNCAN)
+
+
 def _energy_gradient(F, p, mats, kinds):
-    """P = ∂W/∂F by reverse-mode autograd, with the forward-mode tangent of
-    F carried through (the backward graph is built with ``create_graph``
-    inside the dual level, then cut from P: a J·v needs P's tangent, never
-    its graph).  A tensor ``F`` without tangent gives a plain P."""
-    with torch.enable_grad():
-        Fm = F.clone().requires_grad_(True)
-        (P,) = torch.autograd.grad(_strain_energy(Fm, p, mats, kinds).sum(), Fm,
-                                   create_graph=True)
-    primal, tangent = fwAD.unpack_dual(P)
-    if tangent is None:
-        return primal.detach()
-    return fwAD.make_dual(primal.detach(), tangent.detach())
+    """P = ∂W/∂F, with the forward-mode tangent of F carried through.
+
+    By reverse-mode autograd for the kinds without a spectral
+    decomposition (the backward graph is built with ``create_graph`` inside
+    the dual level, then cut from P: a J·v needs P's tangent, never its
+    graph).  Hencky's P is τ·F⁻ᵀ, which is its ∂W/∂F exactly (τ = 2b·∂W/∂b),
+    so that its tangent comes from forward mode through the spectrum
+    (``ops.tensor.isotropic_map``, exact at coincident eigenvalues) instead
+    of reverse mode through the eigenvectors.  The kinds of _W_WITHOUT_F
+    give 0.  A tensor ``F`` without tangent gives a plain P."""
+    reverse = tuple(k for k in kinds if k != M.HENCKY and k not in _W_WITHOUT_F)
+    P = torch.zeros_like(F)
+    if reverse:
+        with torch.enable_grad():
+            Fm = F.clone().requires_grad_(True)
+            W = _strain_energy(Fm, p, mats, reverse)
+            if W.requires_grad:
+                (P,) = torch.autograd.grad(W.sum(), Fm, create_graph=True)
+        primal, tangent = fwAD.unpack_dual(P)
+        P = primal.detach() if tangent is None else fwAD.make_dual(primal.detach(),
+                                                                    tangent.detach())
+    if M.HENCKY in kinds:
+        mid = p.mat_id.long()
+        tau, _, _ = hyperelastic.hencky(F, mats.E[mid], mats.nu[mid])
+        P = torch.where((mats.kind[mid] == M.HENCKY)[:, None, None],
+                        tn.bmm(tau, tn.inv_transpose(F)), P)
+    return P
 
 
 def _cauchy_green(F):

@@ -42,10 +42,13 @@ driver's update runs once at the converged state on the slot layout
 (windowed and fused engines; the scatter engine refuses it).  It launches
 no kernel.
 
-Not ported yet (each raises ``NotImplementedError`` naming its item of
-ROADMAP.md queue 1): material kinds other than Neo-Hookean,
-Saint-Venant-Kirchhoff and Solid-Rigid (item 12b), ``halo``/``axis_name``
-and ``rebin_mode='none'`` (item 15).
+Every material kind of the dispatch runs: the J·v goes through the return
+mappings in forward mode, with the spectral tangent of
+``ops.tensor.isotropic_map``, and the history (b_e, eps, kappa, back stress)
+is written from the converged iterate only.
+Not ported yet (raises ``NotImplementedError`` naming its item of
+ROADMAP.md queue 1): ``halo``/``axis_name`` and ``rebin_mode='none'``
+(item 15).
 On an unstructured ``FEMesh`` (shapefun/femesh.py) the step runs on the
 scatter engine only; 'windowed' and 'fused' raise ``ValueError``.
 ``transfer='binned'`` is on the do-not-port list (ROADMAP.md queue 2) and
@@ -72,8 +75,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import alme, lme
 from ..types import Grid, Particles
 from . import kinematics as kin
-from .common import (binned_refused, check_background, check_hyperelastic_kinds,
-                     check_shapefun, found_lost, make_engine, shapefun_eval)
+from .common import (binned_refused, check_background, check_shapefun, found_lost,
+                     make_engine, shapefun_eval)
 from .explicit import _bin_to_slots, to_slot_layout
 
 Tensor = torch.Tensor
@@ -167,7 +170,6 @@ def _check_supported(cfg: ImplicitConfig, p: Particles, grid):
         raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")
     if cfg.damage not in (None, "eigenerosion", "eigensoftening"):
         raise ValueError(f"unknown damage driver {cfg.damage}")
-    check_hyperelastic_kinds(cfg, "implicit")
     check_shapefun(cfg)
     if cfg.transfer == "binned":
         raise binned_refused()
@@ -204,12 +206,16 @@ def _local_state(p, mats, cfg, nm, grad_vel_const, grad_du):
     """ΔF, F_{n+1}, Ḟ_{n+1} and the stress at a displacement gradient of the
     Newton iterate (particle state is not touched)."""
     d = grad_du.shape[-1]
-    DF = grad_du + torch.eye(d, dtype=grad_du.dtype, device=grad_du.device)
+    eye = torch.eye(d, dtype=grad_du.dtype, device=grad_du.device)
+    DF = grad_du + eye
     F_n1 = tn.bmm(DF, p.F)
     dt_DF = nm.alpha_4 * grad_du + grad_vel_const
     dFdt_n1 = kin.rate_deformation_gradient_n1(dt_DF, p.F, DF, p.dFdt)
+    # emptied slots hold F = 0, which the fluids and Hencky cannot digest
+    # (hazard B, ROADMAP.md queue 3): the models see the identity there
     cs = con.stress_integration(
-        F_n1=F_n1, DF=DF, dFdt_n1=dFdt_n1, bemi=p.bemi, bemi_zz=p.bemi_zz, eps=p.eps,
+        F_n1=torch.where(p.active[:, None, None], F_n1, eye), DF=DF, dFdt_n1=dFdt_n1,
+        bemi=p.bemi, bemi_zz=p.bemi_zz, eps=p.eps,
         kappa=p.kappa, back_stress=p.back_stress, mat_id=p.mat_id, mats=mats, kinds=cfg.kinds,
     )
     return DF, F_n1, dFdt_n1, cs

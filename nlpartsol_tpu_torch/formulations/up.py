@@ -39,10 +39,9 @@ u-pw step, formulations/upw.py), and launches:
 (the 1 of the N + gradient gathers: the local state at the converged
 iterate.)  K = n + L/20 when no solve runs all its cycles.
 
-Not ported yet (each raises ``NotImplementedError`` naming its item of
-ROADMAP.md queue 1): material kinds other than Neo-Hookean,
-Saint-Venant-Kirchhoff and Solid-Rigid (item 12b),
-``axis_name``/``rebin_mode='none'`` (item 15).
+Every material kind of the dispatch runs.
+Not ported yet (raises ``NotImplementedError`` naming its item of
+ROADMAP.md queue 1): ``axis_name``/``rebin_mode='none'`` (item 15).
 On an unstructured ``FEMesh`` (shapefun/femesh.py) the step runs on the
 scatter engine only; 'windowed' and 'fused' raise ``ValueError``.
 ``transfer='binned'`` is on the do-not-port list (ROADMAP.md queue 2) and
@@ -68,8 +67,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import alme, lme
 from ..types import Grid, Particles
 from . import kinematics as kin
-from .common import (binned_refused, check_background, check_hyperelastic_kinds,
-                     check_shapefun, found_lost, make_engine, shapefun_eval)
+from .common import (binned_refused, check_background, check_shapefun, found_lost,
+                     make_engine, shapefun_eval)
 from .explicit import _bin_to_slots, to_slot_layout
 from .implicit import (_advance, _balance, _det_clamped, _free_dofs, _increments, _local_state,
                        newmark_parameters)
@@ -122,7 +121,6 @@ def _check_supported(cfg: UpConfig, p: Particles, grid):
         raise later("rebin_mode='none'", 15, "Multi-device")
     if cfg.rebin_mode not in ("local", "global"):
         raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")
-    check_hyperelastic_kinds(cfg, "u-p")
     check_shapefun(cfg)
     if cfg.transfer == "binned":
         raise binned_refused()

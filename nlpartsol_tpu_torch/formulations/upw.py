@@ -58,10 +58,9 @@ per cycle — its residual and 20 Arnoldi steps — and one for the final
 residual; the 2 of the gathers: the fixed fields, and the local state at the
 converged iterate.)  K = n + L/20 when no solve runs all its cycles.
 
-Not ported yet (each raises ``NotImplementedError`` naming its item of
-ROADMAP.md queue 1): soil kinds other than Neo-Hookean,
-Saint-Venant-Kirchhoff and Solid-Rigid (item 12b),
-``halo``/``axis_name``/``rebin_mode='none'`` (item 15).
+Every soil kind of the dispatch runs (``mix.soil_id`` selects the soil's
+row).  Not ported yet (raises ``NotImplementedError`` naming its item of
+ROADMAP.md queue 1): ``halo``/``axis_name``/``rebin_mode='none'`` (item 15).
 On an unstructured ``FEMesh`` (shapefun/femesh.py) the step runs on the
 scatter engine only; 'windowed' and 'fused' raise ``ValueError``.
 ``transfer='binned'`` is on the do-not-port list (ROADMAP.md queue 2) and
@@ -87,8 +86,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import alme, lme
 from ..types import Grid, Particles, Record
 from . import kinematics as kin
-from .common import (binned_refused, check_background, check_hyperelastic_kinds,
-                     check_shapefun, found_lost, make_engine, shapefun_eval)
+from .common import (binned_refused, check_background, check_shapefun, found_lost,
+                     make_engine, shapefun_eval)
 from .explicit import _bin_to_slots, to_slot_layout
 from .implicit import newmark_parameters
 
@@ -188,7 +187,6 @@ def _check_supported(cfg, p: Particles, grid):
         raise binned_refused()
     if cfg.transfer not in ("windowed", "fused", "scatter"):
         raise ValueError(f"unknown transfer {cfg.transfer}")
-    check_hyperelastic_kinds(cfg, "u-pw")
     check_shapefun(cfg)
     if cfg.transfer != "scatter" and cfg.active_box is None:
         raise ValueError(f"{cfg.transfer} transfer requires cfg.active_box")
@@ -225,9 +223,12 @@ def _mixture_fields(p, mats, mix):
 
 
 def _stress(mats, cfg, p, soil, F_n1, DF, dFdt_n1):
+    # the identity on emptied slots (F = 0; hazard B, ROADMAP.md queue 3)
+    eye = torch.eye(F_n1.shape[-1], dtype=F_n1.dtype, device=F_n1.device)
     return con.stress_integration(
-        F_n1=F_n1, DF=DF, dFdt_n1=dFdt_n1, bemi=p.bemi, bemi_zz=p.bemi_zz, eps=p.eps,
-        kappa=p.kappa, back_stress=p.back_stress, mat_id=soil, mats=mats, kinds=cfg.kinds)
+        F_n1=torch.where(p.active[:, None, None], F_n1, eye), DF=DF, dFdt_n1=dFdt_n1,
+        bemi=p.bemi, bemi_zz=p.bemi_zz, eps=p.eps, kappa=p.kappa, back_stress=p.back_stress,
+        mat_id=soil, mats=mats, kinds=cfg.kinds)
 
 
 def _advance(p, act, cs, kin_n1, mix_n1, dis_inc, v_new, a_new, pw_new, dpw_dt_new, lam):

@@ -21,8 +21,10 @@ count: the JAX function's Modified-Lade-Duncan ``ddG_ddT`` subtracts an (Np,)
 broadcasts along the wrong axis).  The 5x5 systems are solved by Gaussian
 elimination with partial pivoting written out in tensor code (the pivoting
 of LAPACK's getrf, which the JAX function reaches): no LAPACK or cuSOLVER
-call, no error status read back to the host.  The consistent tangent
-(``C_ep`` of the JAX function) feeds no step of the port yet and is not
+call, no error status read back to the host.  The implicit steps' tangent
+is the forward-mode derivative of this update through
+``spectral.trial_update``, the 5x5 Newton, its backtracking and the
+elimination included; the JAX function's assembled ``C_ep`` is not
 computed.
 """
 
@@ -35,7 +37,7 @@ import torch
 from .. import config
 from ..ops import tensor as tn
 from .materials import lame_parameters
-from .spectral import hencky_from_wm1, rebuild, trial_bemi, wm1_from_hencky
+from .spectral import hencky_from_wm1, trial_update, wm1_from_hencky
 
 Tensor = torch.Tensor
 
@@ -78,8 +80,12 @@ def _d_kappa_d_lambda(a1_, a2_, a3_, Lam, I1):
 
 
 def _cbrt(x):
-    """Real cube root (negative for negative x), as ``jnp.cbrt``."""
-    return torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
+    """Real cube root (negative for negative x), as ``jnp.cbrt``: the bits
+    of sign(x)·|x|^⅓, without the multiply by sign(x), whose forward-mode
+    tangent is a zero tensor (an op on one takes a slow path on the
+    host)."""
+    a = torch.abs(x) ** (1.0 / 3.0)
+    return torch.where(x < 0, -a, a)
 
 
 def _main_hessian(K2, I3, Ts):
@@ -292,7 +298,6 @@ def borja_frictional(
     """Batched Borja stress update.  ``eps`` carries Λ; ``kappa`` carries
     κ_φ.  The reference's c0 and ψ parameters are hard-coded constants of
     its MN/LD/MLD paths, so they are not arguments here."""
-    F, dF_dT, dF_dkappa, dG_dT, ddG_ddT, ddG_dT_dkpsi = _yield_fns(yield_kind, pa=pa, m=m)
     dt, dev = eps.dtype, eps.device
 
     lam_e, G_e = lame_parameters(E, nu)
@@ -307,100 +312,103 @@ def borja_frictional(
     AA = lam_e[..., None, None] * ones3 + 2.0 * G_e[..., None, None] * eye3
     CC = (1.0 / E)[..., None, None] * eye3 + (-nu / E)[..., None, None] * (ones3 - eye3)
 
-    wm1, V = trial_bemi(bemi, bemi_zz, DF)
-    Eh_tr = hencky_from_wm1(wm1)  # (..., 3)
+    def principal(wm1, AA, CC, c_cotphi, eps, kappa, a1, a2, a3, alpha, pa, m):
+        F, dF_dT, dF_dkappa, dG_dT, ddG_ddT, ddG_dT_dkpsi = _yield_fns(yield_kind, pa=pa, m=m)
+        Eh_tr = hencky_from_wm1(wm1)  # (..., 3)
 
-    T_tr = tn.bmv(AA, Eh_tr) - c_cotphi[..., None]
+        T_tr = tn.bmv(AA, Eh_tr) - c_cotphi[..., None]
 
-    Lam_n = eps
-    kap_n = kappa
-    P_tr = _Principal(T_tr)
-    F0 = F(P_tr, kap_n)
-    plastic = F0 > config.TOL_NR
-    F0_safe = torch.where(F0 == 0.0, torch.ones_like(F0), F0)
+        Lam_n = eps
+        kap_n = kappa
+        P_tr = _Principal(T_tr)
+        F0 = F(P_tr, kap_n)
+        plastic = F0 > config.TOL_NR
+        F0_safe = torch.where(F0 == 0.0, torch.ones_like(F0), F0)
 
-    def residual(P, kap, dlam, Lam, dGdT):
-        Eh_k = tn.bmv(CC, P.T + c_cotphi[..., None])
-        kap_hat = _kappa_hat(a1, a2, a3, Lam, P.I1)
-        r_strain = Eh_k - Eh_tr + dlam[..., None] * dGdT
-        R = torch.cat([r_strain, (kap - kap_hat)[..., None], F(P, kap)[..., None]], dim=-1)
-        return torch.sqrt(torch.sum(R * R, dim=-1)), R
+        def residual(P, kap, dlam, Lam, dGdT):
+            Eh_k = tn.bmv(CC, P.T + c_cotphi[..., None])
+            kap_hat = _kappa_hat(a1, a2, a3, Lam, P.I1)
+            r_strain = Eh_k - Eh_tr + dlam[..., None] * dGdT
+            R = torch.cat([r_strain, (kap - kap_hat)[..., None], F(P, kap)[..., None]], dim=-1)
+            return torch.sqrt(torch.sum(R * R, dim=-1)), R
 
-    nR0, _ = residual(P_tr, kap_n, torch.zeros_like(F0), Lam_n, dG_dT(P_tr, alpha * kap_n))
-    nR0_safe = torch.where(nR0 == 0.0, torch.ones_like(nR0), nR0)
+        nR0, _ = residual(P_tr, kap_n, torch.zeros_like(F0), Lam_n, dG_dT(P_tr, alpha * kap_n))
+        nR0_safe = torch.where(nR0 == 0.0, torch.ones_like(nR0), nR0)
 
-    T, kap, dlam = T_tr, kap_n, torch.zeros_like(F0)
-    done, apexed = torch.zeros_like(plastic), torch.zeros_like(plastic)
-    inf = torch.full((), float("inf"), dtype=dt, device=dev)
-    # fixed backtracking candidates, on a leading axis
-    deltas = torch.tensor((1.0, 0.5, 0.25, 0.0625), dtype=dt, device=dev)
-    deltas = deltas.reshape((4,) + (1,) * F0.ndim)
-    for _ in range(n_iter):
-        Lam = Lam_n + dlam
-        P = _Principal(T)
-        kpsi = alpha * kap
-        dGdT = dG_dT(P, kpsi)
-        nR, R = residual(P, kap, dlam, Lam, dGdT)
-        # R's last entry is the yield function F(T, κ_φ)
-        converged = (torch.abs(nR / nR0_safe) < tol) | (torch.abs(R[..., 4] / F0_safe) < tol)
-        live = plastic & ~done & ~converged & ~apexed
+        T, kap, dlam = T_tr, kap_n, torch.zeros_like(F0)
+        done, apexed = torch.zeros_like(plastic), torch.zeros_like(plastic)
+        inf = torch.full((), float("inf"), dtype=dt, device=dev)
+        # fixed backtracking candidates, on a leading axis
+        deltas = torch.tensor((1.0, 0.5, 0.25, 0.0625), dtype=dt, device=dev)
+        deltas = deltas.reshape((4,) + (1,) * F0.ndim)
+        for _ in range(n_iter):
+            Lam = Lam_n + dlam
+            P = _Principal(T)
+            kpsi = alpha * kap
+            dGdT = dG_dT(P, kpsi)
+            nR, R = residual(P, kap, dlam, Lam, dGdT)
+            # R's last entry is the yield function F(T, κ_φ)
+            converged = (torch.abs(nR / nR0_safe) < tol) | (torch.abs(R[..., 4] / F0_safe) < tol)
+            live = plastic & ~done & ~converged & ~apexed
 
-        dk_dI1 = _d_kappa_d_I1(a1, a2, a3, Lam, P.I1)
-        dk_dlam = _d_kappa_d_lambda(a1, a2, a3, Lam, P.I1)
+            dk_dI1 = _d_kappa_d_I1(a1, a2, a3, Lam, P.I1)
+            dk_dlam = _d_kappa_d_lambda(a1, a2, a3, Lam, P.I1)
 
-        # the (..., 5, 5) tangent, row by row
-        lead = dlam.shape
-        row_T = torch.cat(
-            [
-                CC.expand(*lead, 3, 3) + dlam[..., None, None] * ddG_ddT(P, kpsi),
-                (alpha * dlam)[..., None, None] * ddG_dT_dkpsi(P, kpsi)[..., None],
-                dGdT[..., None],
-            ],
-            dim=-1,
-        )
-        one, zero = torch.ones_like(dlam), torch.zeros_like(dlam)
-        row_k = torch.stack([-dk_dI1, -dk_dI1, -dk_dI1, one, -dk_dlam], dim=-1)
-        # the (4,4) zero regularised for solvability
-        row_F = torch.cat(
-            [dF_dT(P, kap), torch.stack([dF_dkappa(P, kap), zero + 1e-14], dim=-1)], dim=-1
-        )
-        Tg = torch.cat([row_T, row_k[..., None, :], row_F[..., None, :]], dim=-2)
-        dz = solve_small(Tg, R)
+            # the (..., 5, 5) tangent, row by row
+            lead = dlam.shape
+            row_T = torch.cat(
+                [
+                    CC.expand(*lead, 3, 3) + dlam[..., None, None] * ddG_ddT(P, kpsi),
+                    (alpha * dlam)[..., None, None] * ddG_dT_dkpsi(P, kpsi)[..., None],
+                    dGdT[..., None],
+                ],
+                dim=-1,
+            )
+            one, zero = torch.ones_like(dlam), torch.zeros_like(dlam)
+            row_k = torch.stack([-dk_dI1, -dk_dI1, -dk_dI1, one, -dk_dlam], dim=-1)
+            # the (4,4) zero regularised for solvability
+            row_F = torch.cat(
+                [dF_dT(P, kap), torch.stack([dF_dkappa(P, kap), zero + 1e-14], dim=-1)], dim=-1
+            )
+            Tg = torch.cat([row_T, row_k[..., None, :], row_F[..., None, :]], dim=-2)
+            dz = solve_small(Tg, R)
 
-        # fixed backtracking: the candidate steps side by side on a leading
-        # axis, the first of the smallest residual norms taken
-        T_c = T - deltas[..., None] * dz[..., :3]
-        kap_c = kap - deltas * dz[..., 3]
-        dlam_c = dlam - deltas * dz[..., 4]
-        P_c = _Principal(T_c)
-        n_c, _ = residual(P_c, kap_c, dlam_c, Lam_n + dlam_c, dG_dT(P_c, alpha * kap_c))
-        n_c = torch.where(Lam_n + dlam_c < 0.0, inf, n_c)  # forbid Λ < 0
-        all_neg = torch.all(torch.isinf(n_c), dim=0)
-        best = torch.argmin(n_c, dim=0, keepdim=True)
-        T_new = torch.gather(T_c, 0, best[..., None].expand(1, *T.shape))[0]
-        kap_new = torch.gather(kap_c, 0, best)[0]
-        dlam_new = torch.gather(dlam_c, 0, best)[0]
+            # fixed backtracking: the candidate steps side by side on a leading
+            # axis, the first of the smallest residual norms taken
+            T_c = T - deltas[..., None] * dz[..., :3]
+            kap_c = kap - deltas * dz[..., 3]
+            dlam_c = dlam - deltas * dz[..., 4]
+            P_c = _Principal(T_c)
+            n_c, _ = residual(P_c, kap_c, dlam_c, Lam_n + dlam_c, dG_dT(P_c, alpha * kap_c))
+            n_c = torch.where(Lam_n + dlam_c < 0.0, inf, n_c)  # forbid Λ < 0
+            all_neg = torch.all(torch.isinf(n_c), dim=0)
+            best = torch.argmin(n_c, dim=0, keepdim=True)
+            T_new = torch.gather(T_c, 0, best[..., None].expand(1, *T.shape))[0]
+            kap_new = torch.gather(kap_c, 0, best)[0]
+            dlam_new = torch.gather(dlam_c, 0, best)[0]
 
-        # apex collapse
-        hit_apex = torch.abs(torch.mean(T_new, dim=-1)) < TOL_APEX
-        T_new = torch.where(hit_apex[..., None], torch.zeros_like(T_new), T_new)
-        kap_new = torch.where(hit_apex, kap_n, kap_new)
-        dlam_new = torch.where(hit_apex, zero, dlam_new)
+            # apex collapse
+            hit_apex = torch.abs(torch.mean(T_new, dim=-1)) < TOL_APEX
+            T_new = torch.where(hit_apex[..., None], torch.zeros_like(T_new), T_new)
+            kap_new = torch.where(hit_apex, kap_n, kap_new)
+            dlam_new = torch.where(hit_apex, zero, dlam_new)
 
-        T = torch.where(live[..., None], T_new, T)
-        kap = torch.where(live, kap_new, kap)
-        dlam = torch.where(live, dlam_new, dlam)
-        done = done | (live & all_neg) | converged
-        apexed = apexed | (live & hit_apex)
+            T = torch.where(live[..., None], T_new, T)
+            kap = torch.where(live, kap_new, kap)
+            dlam = torch.where(live, dlam_new, dlam)
+            done = done | (live & all_neg) | converged
+            apexed = apexed | (live & hit_apex)
 
-    T_fin = torch.where(plastic[..., None], T, T_tr)
-    kap_fin = torch.where(plastic, kap, kap_n)
-    Lam_fin = torch.where(plastic & ~apexed, Lam_n + dlam, Lam_n)
+        T_fin = torch.where(plastic[..., None], T, T_tr)
+        kap_fin = torch.where(plastic, kap, kap_n)
+        Lam_fin = torch.where(plastic & ~apexed, Lam_n + dlam, Lam_n)
 
-    # outputs: nominal stress adds back c·cotφ
-    T_out = T_fin + c_cotphi[..., None]
-    Eh_k = tn.bmv(CC, T_out)
-    bemi_new, bemi_zz_new = rebuild(wm1_from_hencky(Eh_k), V)
-    tau, tau_zz = rebuild(T_out, V)
-    W = 0.5 * torch.sum(T_out * Eh_tr, dim=-1)
+        # outputs: nominal stress adds back c·cotφ
+        T_out = T_fin + c_cotphi[..., None]
+        Eh_k = tn.bmv(CC, T_out)
+        W = 0.5 * torch.sum(T_out * Eh_tr, dim=-1)
+        return (wm1_from_hencky(Eh_k), T_out), (Lam_fin, kap_fin, W)
+
+    ((bemi_new, bemi_zz_new), (tau, tau_zz)), (Lam_fin, kap_fin, W) = trial_update(
+        bemi, bemi_zz, DF, principal, AA, CC, c_cotphi, eps, kappa, a1, a2, a3, alpha, pa, m)
     return BorjaOut(tau, tau_zz, bemi_new, bemi_zz_new, Lam_fin, kap_fin, W)

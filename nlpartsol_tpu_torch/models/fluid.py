@@ -34,10 +34,17 @@ def bingham_fluid(F, dFdt, *, p0, mu0, tau_y, m_pap, n, K):
     pressure = p0 + (K / n) * (J ** (-n) - 1.0)
     E = tn.sym(spatial_velocity_gradient(dFdt, F))
     trE = tn.trace(E)
-    # γ̇ includes the zz channel only through tr in 3D; plane strain d_zz=0
-    gdot = torch.sqrt(2.0 * torch.sum(E * E, dim=(-2, -1)))
+    # γ̇ includes the zz channel only through tr in 3D; plane strain d_zz=0.
+    # At a zero rate the sqrt is where-safe and μ takes its limit μ0 + τ_y·m
+    # (d = 0 there, so τ does not change): the tangent 2μ·dd is finite and
+    # equals the limit a central difference sees
+    g2 = 2.0 * torch.sum(E * E, dim=(-2, -1))
+    moving = g2 > 0.0
+    gdot = torch.where(moving, torch.sqrt(torch.where(moving, g2, torch.ones_like(g2))),
+                       torch.zeros_like(g2))
     gdot_s = torch.clamp(gdot, min=1e-12)
-    mu = mu0 + (tau_y / gdot_s) * (1.0 - torch.exp(-m_pap * gdot))
+    mu = mu0 + torch.where(moving, (tau_y / gdot_s) * (1.0 - torch.exp(-m_pap * gdot)),
+                           tau_y * m_pap)
     c0 = J * mu
     eye = torch.eye(d, dtype=F.dtype, device=F.device)
     tau = (

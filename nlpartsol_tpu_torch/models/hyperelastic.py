@@ -65,13 +65,16 @@ def hencky(F: torch.Tensor, E_mod: torch.Tensor, nu: torch.Tensor):
     lam, G = lame_parameters(E_mod, nu)
     eye = torch.eye(d, dtype=F.dtype, device=F.device)
     bmi = tn.bmi_from_disp_grad(F - eye)
-    wm1, V = tn.sym_eig(bmi)  # eigenvalues of b, minus 1, exactly
-    Eh = 0.5 * torch.log1p(torch.clamp(wm1, min=-1.0 + 1e-12))
-    trEh = torch.sum(Eh, dim=-1)  # zz adds 0 in plane strain (b_zz = 1)
-    T_ppal = lam[..., None] * trEh[..., None] + 2.0 * G[..., None] * Eh
-    tau = tn.sym_from_eig(T_ppal, V)
-    tau_zz = lam * trEh
-    W = 0.5 * torch.sum(T_ppal * Eh, dim=-1)
+
+    def principal(wm1, lam, G):  # eigenvalues of b, minus 1, exactly
+        Eh = 0.5 * torch.log1p(torch.clamp(wm1, min=-1.0 + 1e-12))
+        trEh = torch.sum(Eh, dim=-1)  # zz adds 0 in plane strain (b_zz = 1)
+        T_ppal = lam[..., None] * trEh[..., None] + 2.0 * G[..., None] * Eh
+        return (T_ppal,), (lam * trEh, 0.5 * torch.sum(T_ppal * Eh, dim=-1))
+
+    # through isotropic_map: a forward-mode J·v exact at coincident and
+    # diagonal spectra (ops/tensor.py)
+    (tau,), _, (tau_zz, W) = tn.isotropic_map(bmi, principal, lam, G)
     return tau, tau_zz, W
 
 

@@ -12,6 +12,11 @@ rest, so that in float32 the principal Hencky strains come out of ``log1p``
 on exactly computed deviations:
   b_e^tr − I = ΔF (b_e − I) ΔFᵀ + (ΔF ΔFᵀ − I)
 with the last term expanded cancellation-free from ΔA = ΔF − I.
+
+:func:`trial_update` runs a model's principal-space map through
+``ops.tensor.isotropic_map``, so that its forward-mode J·v (the implicit
+steps' tangent) is exact at coincident and diagonal spectra, where forward
+mode through the eigenvectors is not (ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
@@ -36,12 +41,42 @@ def trial_bemi(bemi: Tensor, bemi_zz: Tensor, DF: Tensor):
       V:   (..., d, d) in-plane eigenvectors (columns).
     """
     d = bemi.shape[-1]
-    dA = DF - torch.eye(d, dtype=DF.dtype, device=DF.device)
-    bemi_tr = tn.bmm_t(tn.bmm(DF, bemi), DF) + tn.bmi_from_disp_grad(dA)
-    wm1, V = tn.sym_eig(bemi_tr)
+    wm1, V = tn.sym_eig(_trial_tensor(bemi, DF))
     if d == 2:
         wm1 = torch.cat([wm1, bemi_zz[..., None]], dim=-1)
     return wm1, V
+
+
+def _trial_tensor(bemi: Tensor, DF: Tensor) -> Tensor:
+    d = bemi.shape[-1]
+    dA = DF - torch.eye(d, dtype=DF.dtype, device=DF.device)
+    return tn.bmm_t(tn.bmm(DF, bemi), DF) + tn.bmi_from_disp_grad(dA)
+
+
+def trial_update(bemi: Tensor, bemi_zz: Tensor, DF: Tensor, principal, *args):
+    """A return mapping on the trial spectrum, rebuilt on its eigenvectors.
+
+    ``principal(wm1, *args)`` takes the principal values of b_e^tr − I,
+    (…, 3) (index 2 = zz for d=2), and the model's parameters and history,
+    and returns ``(vals, extra)``: ``vals`` a tuple of principal arrays
+    (…, 3) to rebuild (the stress, the corrected b_e − I), ``extra`` a tuple
+    of per-particle outputs.  It may be called with a leading axis of copies
+    (``ops.tensor.isotropic_map``), against which ``args`` must broadcast.
+    Returns ``([(in-plane, zz), …] one pair per entry of vals, extra)``: the
+    same arithmetic as :func:`trial_bemi`, the map and :func:`rebuild`.  The
+    history carries no tangent."""
+    d = bemi.shape[-1]
+    if tn.tangent_of(bemi) is not None:
+        raise ValueError("the b_e history must carry no forward-mode tangent")
+
+    def fn(w, bemi_zz, *args):
+        if d == 2:
+            w = torch.cat([w, bemi_zz[..., None].expand(*w.shape[:-1], 1)], dim=-1)
+        return principal(w, *args)
+
+    tensors, vals, extra = tn.isotropic_map(_trial_tensor(bemi, DF), fn, bemi_zz, *args,
+                                            key=tn.map_key(principal) + (d,))
+    return [(T, v[..., 2]) for T, v in zip(tensors, vals)], extra
 
 
 def hencky_from_wm1(wm1: Tensor) -> Tensor:

@@ -12,6 +12,7 @@ the BLAS library's batched GEMM (see :func:`bmm`).
 from __future__ import annotations
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 Tensor = torch.Tensor
 
@@ -187,6 +188,174 @@ def sym_func(a: Tensor, fn) -> Tensor:
     (e.g. ``sym_func(b_e, torch.log)`` for Hencky strain)."""
     w, V = sym_eig(a)
     return sym_from_eig(fn(w), V)
+
+
+# ---------------------------------------------------------------------------
+# Isotropic tensor functions with an exact forward-mode tangent.
+#
+# Forward mode through sym_eig is wrong where the spectrum is degenerate or
+# the tensor diagonal: the 2D radius sqrt(diff² + a01²) has a 0·∞ tangent
+# at coincident eigenvalues, and on a diagonal tensor both solvers pick
+# their eigenvectors by ``where`` on constants, whose tangent is zero, so
+# the shear part of the tangent is lost.  :func:`isotropic_map` never
+# differentiates the eigenvectors.  For T = Σ_i t_i n_i⊗n_i with
+# t = h(λ), in the primal eigenbasis (Â = Vᵀ·A·V):
+#   dT̂_ii = Σ_j ∂h_i/∂λ_j · dÂ_jj            (forward mode through h)
+#   dT̂_ij = (t_i − t_j)/(λ_i − λ_j) · dÂ_ij   (i ≠ j)
+# and where λ_i = λ_j the divided difference takes its limit
+# ∂h_i/∂λ_i − ∂h_i/∂λ_j, the derivative of h_i − h_j along (e_i − e_j)/2.
+# ---------------------------------------------------------------------------
+
+_PAIRS = {2: ((0, 1),), 3: ((0, 1), (0, 2), (1, 2))}
+
+
+def tangent_of(x):
+    """The forward-mode tangent of ``x`` (None outside a dual level, or
+    for a tensor that carries none)."""
+    return fwAD.unpack_dual(x).tangent
+
+
+# The principal Jacobians of the last dual call of each map (by its key):
+# a Newton-Krylov solve takes every J·v of a Newton iteration at the same
+# iterate, so all but the first reuse them.  Held as plain tensors beside
+# the eigenvalues and arguments they were taken at; used only where those
+# are equal (a NaN never is: such inputs are taken afresh each time).
+_JACOBIANS: dict = {}
+
+
+def clear_jacobian_cache() -> None:
+    _JACOBIANS.clear()
+
+
+def map_key(fn):
+    """A cache key of a principal map: its code and the plain values (a
+    yield kind, iteration counts, tolerances) its closure holds."""
+    cells = tuple(c.cell_contents for c in fn.__closure__ or ())
+    return (fn.__code__,) + tuple(v for v in cells
+                                  if v is None or isinstance(v, (bool, int, float, str)))
+
+
+def isotropic_map(a: Tensor, fn, *args, key=None):
+    """Isotropic tensor functions of the symmetric (..., d, d) tensor ``a``.
+
+    ``fn(w, *args)`` maps the eigenvalues w (…, d), ascending, to ``(vals,
+    extra)``: ``vals`` a tuple of principal arrays (…, m ≥ d) whose first d
+    entries are the principal values of an output tensor, ``extra`` a tuple
+    of other outputs.  Returns ``(tensors, vals, extra)`` with tensors[k] =
+    Σ_i vals[k][..., i] n_i⊗n_i.
+
+    Without a tangent on ``a`` this is sym_eig, fn and sym_from_eig, nothing
+    more.  With one, the eigenpairs are those of a's primal, and the
+    Jacobian of fn's outputs with respect to w comes from one run of fn on a
+    stack of d copies of w along a new leading axis, copy k with the
+    tangent e_k (or from the last such run, where w and ``args`` are equal
+    to its).  The outputs get the tangents of the section comment above,
+    with dλ_i = n_i·dA·n_i and the limit of a divided difference
+    ½(J_ii − J_ij − J_ji + J_jj).  fn must broadcast ``args`` (history,
+    parameters) against that leading axis; they must carry no tangent, and
+    fn gets them with a zero one.  ``key`` names fn in the cache (default
+    :func:`map_key`): two maps under one key must differ in ``args``."""
+    d = a.shape[-1]
+    a0, da = fwAD.unpack_dual(a)
+    if da is None:
+        w, V = sym_eig(a)
+        vals, extra = fn(w, *args)
+        return tuple(sym_from_eig(v[..., :d], V) for v in vals), vals, extra
+
+    w, V = sym_eig(a0)
+    dah = bmm(V.transpose(-1, -2), bmm(da, V))  # Vᵀ·dA·V
+    dw = torch.diagonal(dah, dim1=-2, dim2=-1)
+    vals_p, vals_J, extra_p, extra_J = _principal_jacobians(
+        fn, w, args, map_key(fn) if key is None else key)
+
+    def tangent(J):  # Σ_k J[..., k]·dλ_k, for a per-row or a (…, m) output
+        return (J * (dw if J.dim() == dw.dim() else dw[..., None, :])).sum(-1)
+
+    # eigenvalues closer than rel of their size, or whose divided difference
+    # would lose more than rel·|∂t/∂λ| to cancellation (eps·|t|/gap), take
+    # the limit, which is off by O(gap) on the scale the map varies over
+    rel = float(torch.finfo(w.dtype).eps) ** 0.5
+    tensors, vals = [], []
+    for v_p, J in zip(vals_p, vals_J):
+        dv = tangent(J)
+        t = v_p[..., :d]
+        M = torch.diag_embed(dv[..., :d])
+        for i, j in _PAIRS[d]:
+            gap = w[..., i] - w[..., j]
+            slope = torch.maximum(J[..., i, i].abs(), J[..., j, j].abs())
+            apart = ((gap.abs() > rel * torch.maximum(w[..., i].abs(), w[..., j].abs()))
+                     & (gap.abs() * slope > rel * torch.maximum(t[..., i].abs(), t[..., j].abs())))
+            divided = (t[..., i] - t[..., j]) / torch.where(apart, gap, torch.ones_like(gap))
+            limit = 0.5 * (J[..., i, i] - J[..., i, j] - J[..., j, i] + J[..., j, j])
+            c = torch.where(apart, divided, limit) * dah[..., i, j]
+            M = M + c[..., None, None] * _sym_unit(d, i, j, M)
+        tensors.append(fwAD.make_dual(sym_from_eig(t, V), bmm_t(bmm(V, M), V)))
+        vals.append(fwAD.make_dual(v_p, dv))
+    extra = tuple(e if J is None else fwAD.make_dual(e, tangent(J))
+                  for e, J in zip(extra_p, extra_J))
+    return tuple(tensors), tuple(vals), extra
+
+
+def _principal_jacobians(fn, w, args, key):
+    """fn's primal outputs at (w, args) and their Jacobians with respect to
+    w, (…, m, d) (None for an output without a tangent), from the cache or
+    from one run of fn on d copies of w."""
+    hit = _JACOBIANS.get(key)
+    if hit is not None and _same(hit[0], (w,) + args):
+        return hit[1]
+    d = w.shape[-1]
+    dirs = torch.eye(d, dtype=w.dtype, device=w.device)[:, None, :].expand(d, *w.shape)
+    w_all = fwAD.make_dual(w.expand(d, *w.shape).contiguous(), dirs.contiguous())
+    vals_all, extra_all = fn(w_all, *(_zero_tangent(x) for x in args))
+
+    def split(v):
+        v_p, v_t = fwAD.unpack_dual(v)
+        J = None if v_t is None else torch.movedim(v_t, 0, -1)
+        return v_p[0], J
+
+    vals = [split(v) for v in vals_all]
+    extra = [split(e) for e in extra_all]
+    out = ([v for v, _ in vals], [J for _, J in vals], [e for e, _ in extra],
+           [J for _, J in extra])
+    _JACOBIANS[key] = (tuple(x.clone() if isinstance(x, Tensor) else x for x in (w,) + args),
+                       out)
+    return out
+
+
+def _same(held, now):
+    """Whether ``now`` equals ``held``, argument by argument (one host
+    read)."""
+    if len(held) != len(now):
+        return False
+    checks = []
+    for x, y in zip(held, now):
+        if not isinstance(x, Tensor) or not isinstance(y, Tensor):
+            if isinstance(x, Tensor) or isinstance(y, Tensor) or x != y:
+                return False
+        elif x.shape != y.shape or x.dtype != y.dtype or x.device != y.device:
+            return False
+        else:
+            checks.append((x == y).all())
+    return not checks or bool(torch.stack(checks).all())
+
+
+def _zero_tangent(x):
+    """A float tensor with a zero tangent.  On the host, forward mode takes
+    a slow path for an op between a dual and a plain tensor (its efficient
+    zero tangent): 0.31 ms against 0.008 ms between two duals, for a
+    (100, 3) product with torch 2.13 on a CPU core."""
+    if not isinstance(x, Tensor) or not x.is_floating_point():
+        return x
+    if tangent_of(x) is not None:
+        raise ValueError("isotropic_map: an argument of fn carries a forward-mode tangent")
+    return fwAD.make_dual(x, torch.zeros_like(x))
+
+
+def _sym_unit(d, i, j, like):
+    """e_i⊗e_j + e_j⊗e_i as a (d, d) tensor."""
+    u = torch.zeros((d, d), dtype=like.dtype, device=like.device)
+    u[i, j] = u[j, i] = 1.0
+    return u
 
 
 # ---------------------------------------------------------------------------

@@ -191,7 +191,7 @@ def test_options_that_wait_raise():
     _, mt = neo_hookean_tables()
     body = torch.as_tensor(BODY)
     base = tim.ImplicitConfig(dt=1e-3, lme_params=lt, active_box=tb)
-    waiting = [("item 12b", dict(kinds=(4,))), ("item 15", dict(axis_name="p")),
+    waiting = [("item 15", dict(axis_name="p")),
                ("item 15", dict(halo=object())), ("item 15", dict(rebin_mode="none")),
                ("queue 2", dict(transfer="binned"))]
     for item, kw in waiting:

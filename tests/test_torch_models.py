@@ -11,7 +11,6 @@ from nlpartsol_tpu.models import dispatch as jcon, hyperelastic as jhyper, mater
 from nlpartsol_tpu.ops import tensor as jtn
 
 from nlpartsol_tpu_torch.formulations import common
-from nlpartsol_tpu_torch.formulations.implicit import ImplicitConfig
 from nlpartsol_tpu_torch.models import dispatch as tcon, hyperelastic as thyper, materials as tM
 from nlpartsol_tpu_torch.ops import tensor as ttn
 
@@ -100,11 +99,11 @@ def test_stress_integration_blends_kinds_like_jax():
                                    atol=2e-6 * max(np.abs(r).max(), 1.0), err_msg=name)
     assert float(got.tau[torch.as_tensor(mat_id) == 1].abs().max()) == 0.0
 
-    # the dispatch takes every kind (tests/test_torch_models_more.py); the
-    # implicit step refuses a return mapping, whose forward-mode J·v waits
-    with pytest.raises(NotImplementedError, match="Von-Mises.*item 12b, 'Remaining models'"):
-        common.check_hyperelastic_kinds(ImplicitConfig(dt=1e-5, kinds=(tM.VON_MISES,)),
-                                        "implicit")
+    # the dispatch takes every kind (tests/test_torch_models_more.py), and
+    # so does every step: the kind filter of the implicit, u-p, u-pw and DEM
+    # steps is gone (tests/test_torch_implicit_models.py,
+    # test_torch_mixture_models.py run them with the return mappings)
+    assert not hasattr(common, "check_hyperelastic_kinds")
     with pytest.raises(ValueError, match="unknown material kind"):
         tcon.stress_integration(
             F_n1=torch.as_tensor(F), DF=torch.as_tensor(F), dFdt_n1=torch.zeros(n, 2, 2),

@@ -1,17 +1,14 @@
 """What the port does not hold fails loudly: each option that waits for a
 later slice raises NotImplementedError naming that slice of ROADMAP.md —
-sharding (item 15, fracture included) and the implicit, u-p and DEM steps'
-material kinds beyond the hyperelastic ones (item 12b; the explicit step
-takes every kind) — the 'binned' transfer names the do-not-port list
-(queue 2), and an unstructured FEMesh on a slot-layout engine (or under a
-fracture driver) raises ValueError naming the scatter engine."""
+sharding (item 15, fracture included) — the 'binned' transfer names the
+do-not-port list (queue 2), and an unstructured FEMesh on a slot-layout
+engine (or under a fracture driver) raises ValueError naming the scatter
+engine.  Every step takes every material kind (item 12b)."""
 
 import pytest
 import torch
 
-from nlpartsol_tpu_torch.formulations import dem as tdem, explicit as tex, implicit as tim
-from nlpartsol_tpu_torch.formulations import up as tup
-from nlpartsol_tpu_torch.models import materials as tM
+from nlpartsol_tpu_torch.formulations import explicit as tex
 from nlpartsol_tpu_torch.shapefun import femesh as tfem
 
 from _torch_port import cheap_jax_compiles, neo_hookean_tables, problem  # noqa: F401
@@ -46,29 +43,15 @@ def _t3_mesh(grid):
          r"scatter engine \(transfer='scatter'\)|fracture drivers require", ValueError),
         ("explicit", [dict(transfer="binned")], "do-not-port list, ROADMAP.md queue 2",
          NOT_PORTED),
-        # a return mapping's forward-mode J·v waits on the implicit steps
-        ("implicit", [dict(kinds=(tM.DRUCKER_PRAGER,))],
-         "Drucker-Prager.*item 12b, 'Remaining models'", NOT_PORTED),
-        ("up", [dict(kinds=(tM.HENCKY,))], "Hencky.*u-p step.*item 12b", NOT_PORTED),
-        ("dem", [dict(kinds=(tM.VON_MISES,))], "Von-Mises.*item 12b", NOT_PORTED),
     ],
     ids=["halo,axis_name", "rebin_mode=none", "damage+halo", "unstructured_grid",
-         "transfer=binned", "implicit_kinds=Drucker-Prager", "up_kinds=Hencky",
-         "dem_kinds=Von-Mises"],
+         "transfer=binned"],
 )
 def test_what_waits_raises_not_implemented(step, changes, match, error):
     _, (tg, tb, tp, lt) = problem(seed=0)
     _, mt = neo_hookean_tables()
-    if step == "implicit":
-        cfg, fn = tim.ImplicitConfig(dt=1e-5, lme_params=lt, active_box=tb), tim.implicit_step
-    elif step == "up":
-        cfg, fn = tup.UpConfig(dt=1e-5, lme_params=lt), tup.up_step
-    elif step == "dem":
-        cfg, fn = tdem.DEMConfig(dt=1e-5, lme_params=lt), tdem.dem_step
-    else:
-        cfg = tex.ExplicitConfig(dt=1e-5, lme_params=lt, active_box=tb, transfer="fused")
-        fn = tex.explicit_step
+    cfg = tex.ExplicitConfig(dt=1e-5, lme_params=lt, active_box=tb, transfer="fused")
     grid = _t3_mesh(tg) if step == "unstructured" else tg
     for change in changes:
         with pytest.raises(error, match=match):
-            fn(tp, grid, mt, cfg.replace(**change), torch.zeros(2))
+            tex.explicit_step(tp, grid, mt, cfg.replace(**change), torch.zeros(2))

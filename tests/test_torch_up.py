@@ -204,16 +204,13 @@ def test_new_steps_refuse_what_waits():
     _, (tg, tb, tp, lt) = _small_problem()
     mt = tM.material_table([tM.material(kind="Neo-Hookean-Wriggers", E=1e6, nu=0.3)],
                            device="cpu")
-    hencky = tM.material_table([tM.material(kind="Hencky", E=1e6, nu=0.3)], device="cpu")
     for cls, step in ((tup.UpConfig, tup.up_step), (tdem.DEMConfig, tdem.dem_step)):
         cfg = cls(dt=1e-4, lme_params=lt, active_box=tb, transfer="fused")
         for change, match in [(dict(axis_name="p"), "item 15"),
                               (dict(rebin_mode="none"), "item 15"),
-                              (dict(transfer="binned"), "queue 2"),
-                              (dict(kinds=(tM.HENCKY,)), "Remaining models")]:
+                              (dict(transfer="binned"), "queue 2")]:
             with pytest.raises(NotImplementedError, match=match):
-                step(tp, tg, hencky if "kinds" in change else mt, cfg.replace(**change),
-                     torch.zeros(2))
+                step(tp, tg, mt, cfg.replace(**change), torch.zeros(2))
         for shapefun in ("fem", "gimp", "alme"):
             with pytest.raises(ValueError):
                 step(tp, tg, mt, cfg.replace(shapefun=shapefun), torch.zeros(2))
