@@ -13,7 +13,8 @@ return mappings and Hencky, and nonlocal fracture on the explicit
 (2D, 3D) and implicit steps, on the fused kernels; uGIMP and aLME on the
 windowed engine; the scatter engine on every step that takes it;
 unstructured T3/Q4/T4/H8 background meshes with FEM and meshfree LME; the
-deck entry point — on the card.  Each phase
+deck entry point; the halo-sharded grid across ranks of this script that
+share the card — on the card.  Each phase
 prints one JSON line; any failure ends the run with a non-zero exit code.
 Without a CUDA device the script fails at once.
 
@@ -75,7 +76,8 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              formulations/upw.py, host syncs, 5 J·v under the profiler (a
              whole step is some 600,000 kernels: minutes of profiling)
   upw_implicit_parity
-             1 implicit u-pw step on both engines on the card at 128², by pid:
+             1 implicit u-pw step on both engines on the card at 128² (GMRES
+             at 5 cycles a solve, ``UPW_PARITY_KRYLOV_MAXITER``), by pid:
              rel_dx < 1e-3, rel_dv < 1e-2, pw within 1e-2 of its largest
              magnitude, equal Newton iterations; with ``roofline`` the u-pw
              steps' call variants at their shapes (rows ``…@upw``,
@@ -159,7 +161,7 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              explicit 512² step, 4 + 16 steps, 3 scatters and 5 gathers a
              step, parity over 4 steps against the windowed
              engine (pw within 1e-4); one implicit step at 128², dt 5× the
-             explicit one, on the fused kernels (launches held to
+             explicit one (GMRES at 5 cycles a solve), on the fused kernels (launches held to
              formulations/upw.py's formula) and on
              the windowed engine (pw within 1e-2, equal Newton iterations,
              ``converged`` reported); the soil yielded on both
@@ -240,6 +242,38 @@ Phases (each 2D phase has a 3D twin with the suffix ``3d``):
              2 steps each: finite, lost 0, Newton loops converged
   probes     the lane-roll probes: a roll sum checked exactly against
              torch.roll, and timed beside its multiply-add twin at 4 shapes
+  sharded    the halo-sharded grid (parallel/domain.py) on bench.py's
+             problem: S = 1 in this process, 16 + 32 steps beside
+             main_path's ms/step; S = 2 ranks (processes of this script,
+             ``--sharded-rank``, on the one card: a gloo group whose halo
+             planes, migration buffers and all-reduces are staged through
+             host memory), k = 16 seam migration at margin 1, 16 parity
+             steps then 32 timed: by pid against the single-device fused
+             run of ``parity``, rel_dx < 1e-3, rel_dv < 1e-2, nnz equal a
+             step, lost 0, 2 K1 + 2 K2 a step on each rank; each line
+             reports backend, ranks, ranks_per_device and bytes_staged,
+             host syncs, exchanges and all-reduces a step
+  sharded3d  the same for main_path3d's 96³ (k = 1): 8 parity + 16 timed
+  sharded_implicit
+             the implicit 256² step on S = 2, 1 step: converged, Newton and
+             CG counts equal across ranks, Newton equal to the single-device
+             step's, rel_dx, rel_dv as above
+  sharded_upw
+             bench_upw.py's explicit 512² through sharded_upw_run (4 + 8
+             steps, pw within 1e-4 of its largest value) and the Newmark
+             step at 64² with the halo in the rank's own loop (1 step at
+             twice the explicit dt, GMRES at 2 cycles a solve: pw within
+             1e-2, Newton equal to the single-device step's)
+  sharded_fracture
+             eigenerosion on the fracture phase's 512² band, which the seam
+             crosses, k = 1, 4 steps: at most 4 particles with another
+             damage, the strain_f gate, rel_dx, rel_dv
+  sharded2d  2×2 ranks: the 512² explicit step (a re-bin every step, 8
+             steps) and the implicit 256² step (1), each by pid against its
+             single-device fused run
+  multihost  on the S = 2 run: ``gather_particles`` on every rank equals
+             ``unshard_particles`` of the strips; the shards' VTK files
+             together hold the gathered cloud
   large      (if time allows) the fused path alone at the bigger size: 3D
              160³ nodes / 512,000 particles (``large3d``), 2D 2048² nodes /
              4,194,304 particles
@@ -260,6 +294,7 @@ it is the card's name and power limit; the last line is
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -785,6 +820,9 @@ def phase_parity(grid, p0, mats, cfg, h):
     _check_state(label + ":windowed", pw, diag_w)
     rel_dx, rel_dv = _parity(pf, pw, h, label)
     ok = rel_dx < 1e-3 and rel_dv < 1e-2
+    # the single-device fused run the sharded phases are held to
+    SHARED["explicit" + _suffix(dim)] = (grid, p0, mats, cfg, h, _by_pid_numpy(pf),
+                                         [int(n) for n in diag_f["nnz"].long()])
     say(phase=label, steps=steps, rel_dx=rel_dx, rel_dv=rel_dv,
         limit_dx=1e-3, limit_dv=1e-2, nnz_fused=int(diag_f["nnz"].long().sum()),
         nnz_windowed=int(diag_w["nnz"].long().sum()),
@@ -1562,6 +1600,7 @@ def phase_upw_implicit_parity(device):
     steps = UPW_IMPLICIT["parity_steps"]
     grid, p0, mats, mix, cfg, h = build_upw(device, implicit=True,
                                             n_side=UPW_IMPLICIT["parity_n_side"])
+    cfg = cfg.replace(krylov_maxiter=UPW_PARITY_KRYLOV_MAXITER)
     p1 = to_slot_layout(p0, grid, cfg.active_box)
     pf, hist_f = _upw_implicit_steps("upw_implicit_parity:fused", p1, grid, mats, mix, cfg, steps)
     torch.cuda.synchronize()
@@ -1593,6 +1632,11 @@ UPW_SOIL = dict(kind="Drucker-Prager", kappa0=100.0, friction_angle=30.0, dilata
 # iterations and 1,040 GMRES on both engines (on an H100 80GB HBM3 at 700 W), the
 # phase's largest cost
 UPW_MODELS = dict(parity_steps=4, implicit_steps=1, implicit_dt_factor=5.0)
+# GMRES of the 128² implicit u-pw parity legs (upw_implicit_parity,
+# upw_models): 5 cycles a solve (was UpwImplicitConfig's 10, krylov_maxiter
+# 200), a cut of depth that pays for the sharded phases; on this problem the
+# Newton loop ends by its stall rule either way
+UPW_PARITY_KRYLOV_MAXITER = 100
 
 
 def _yielded(p, eps0=0.0):
@@ -1644,7 +1688,8 @@ def phase_upw_models(device):
     # the implicit step at 128², fused then windowed from the same state
     grid, p0, mats, mix, cfg, h = build_upw(device, implicit=True,
                                             n_side=UPW_IMPLICIT["parity_n_side"], soil=UPW_SOIL)
-    cfg = cfg.replace(dt=UPW_MODELS["implicit_dt_factor"] * 0.25 * h / C_MIX)
+    cfg = cfg.replace(dt=UPW_MODELS["implicit_dt_factor"] * 0.25 * h / C_MIX,
+                      krylov_maxiter=UPW_PARITY_KRYLOV_MAXITER)
     p1 = to_slot_layout(p0, grid, cfg.active_box)
     isteps = UPW_MODELS["implicit_steps"]
     ft.reset_launch_counts()
@@ -4755,6 +4800,669 @@ def phase_femesh_scatter(device):
         raise PhaseError(f"femesh_scatter: {rows}")
 
 
+# ---------------------------------------------------------------------------
+# multi-device: the halo-sharded grid (parallel/domain.py) on torch.distributed
+# ---------------------------------------------------------------------------
+#
+# The ranks are processes of this script (``--sharded-rank``), all on the one
+# card: NCCL refuses two ranks on a device, so they join a gloo group and the
+# halo planes, migration buffers and all-reduces go through pinned host
+# memory (the transport, counted in ``bytes_staged``); all arithmetic stays on
+# the card.  The parent computes the single-device references on the card
+# and hands every rank its inputs as files; the ranks of the 1-D phases run
+# in one launch, the 2×2 ranks of ``sharded2d`` in another.
+
+# bench.py's problem (PROBLEMS[2]): S = 2, k = 16 at margin 1; the 16 parity
+# steps are the warm-up of the timed ones
+SHARDED = dict(shards=2, parity_steps=16, steps=32, s1_warm=16, s1_steps=32)
+SHARDED3D = dict(shards=2, parity_steps=8, steps=16)  # main_path3d's, k = 1
+SHARDED_IMPLICIT = dict(n_side=256, steps=1)
+# bench_upw.py's explicit 512², 4 + 8 steps; the Newmark step at 64² and at
+# twice the explicit step, GMRES at 2 cycles a solve (krylov_maxiter 40):
+# this problem's Newton loop ends by the stall rule after 5 iterations at
+# any step size, and at UpwImplicitConfig's 10 cycles a solve one step is
+# 820 GMRES iterations of host-bound J·v (upw_implicit)
+SHARDED_UPW = dict(warm=4, steps=8, newmark_n_side=64, newmark_dt_factor=2.0,
+                   newmark_krylov_maxiter=40)
+SHARDED_FRACTURE = dict(steps=4)
+SHARDED2D = dict(shards=(2, 2), explicit_steps=8, implicit_steps=1)
+SHARDED_PARITY = dict(dx=1e-3, dv=1e-2, pw_explicit=1e-4, pw_newmark=1e-2)
+SHARDED_TIMEOUT_S = 420.0  # one launch of ranks, start to exit
+SHARDED_GROUP_TIMEOUT_S = 60.0  # a collective that waits longer fails the run
+SHARDED_PHASES = ("sharded", "sharded3d", "sharded_implicit", "sharded_upw", "sharded_fracture",
+                  "multihost")
+# the program each rank runs: this script, with ``--sharded-rank``
+RANK_PROGRAM = os.path.abspath(__file__)
+# the parent's single-device states the sharded phases compare against
+SHARED = {}
+
+
+def _cpu(obj):
+    return obj.to("cpu") if hasattr(obj, "to") else obj
+
+
+def _by_pid_numpy(p, names=("x", "v")):
+    """Active rows of ``names`` and pid, on the host, ordered by pid."""
+    act = p.active
+    o = torch.argsort(p.pid[act])
+    return {n: getattr(p, n)[act][o].detach().cpu().numpy() for n in ("pid",) + tuple(names)}
+
+
+def _merge_ranks(parts):
+    """The ranks' by-pid arrays merged into one set ordered by pid."""
+    cat = {n: np.concatenate([q[n] for q in parts]) for n in parts[0]}
+    o = np.argsort(cat["pid"])
+    return {n: a[o] for n, a in cat.items()}
+
+
+def _parity_np(got, ref, h, label, extra=()):
+    """rel_dx over h and rel_dv over the largest speed between two by-pid
+    sets; for each field of ``extra`` its largest gap over its largest
+    magnitude."""
+    if got["pid"].shape != ref["pid"].shape or not (got["pid"] == ref["pid"]).all():
+        raise PhaseError(f"{label}: particle sets differ ({got['pid'].size} against "
+                         f"{ref['pid'].size})")
+    out = dict(rel_dx=float(np.abs(got["x"] - ref["x"]).max()) / h,
+               rel_dv=float(np.abs(got["v"] - ref["v"]).max())
+               / max(float(np.abs(ref["v"]).max()), 1e-12))
+    for name in extra:
+        out[f"rel_d{name}"] = float(np.abs(got[name] - ref[name]).max()) / max(
+            float(np.abs(ref[name]).max()), 1e-12)
+    return out
+
+
+def _shard_stats(res, steps):
+    """The transport of a rank's timed run, per step."""
+    st = res["stats"]
+    return dict(bytes_staged_per_step=st.get("bytes_staged", 0) / steps,
+                host_syncs_per_step=st.get("host_syncs", 0) / steps,
+                exchanges_per_step=st.get("exchanges", 0) / steps,
+                all_reduces_per_step=st.get("all_reduces", 0) / steps)
+
+
+def _transport(outs, world, shape=None):
+    comm = outs[0]["comm"]
+    return dict(backend=comm["backend"], ranks=world, ranks_per_device=world,
+                shard_grid=list(shape or (world,)), device=comm["device"])
+
+
+def _launch_ranks(job_dir, world, job):
+    """Start ``world`` ranks of this script on the job, wait for all of them
+    (each within SHARDED_TIMEOUT_S), and return their outputs; a rank that
+    fails or outlives its time fails the phase, and no rank is left running."""
+    import socket
+
+    torch.save(job, os.path.join(job_dir, "job.pt"))
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, RANK_PROGRAM, "--sharded-rank",
+                               str(r), "--world", str(world), "--port", str(port), "--job",
+                               job_dir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    deadline = time.perf_counter() + SHARDED_TIMEOUT_S
+    logs = []
+    try:
+        for pr in procs:
+            logs.append(pr.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0])
+    except subprocess.TimeoutExpired:
+        raise PhaseError(f"sharded ranks outlived {SHARDED_TIMEOUT_S} s")
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.communicate()
+    for r, (pr, log) in enumerate(zip(procs, logs)):
+        with open(os.path.join(job_dir, f"rank{r}.log"), "w") as fh:
+            fh.write(log)
+        if pr.returncode != 0:
+            raise PhaseError(f"sharded rank {r} failed ({pr.returncode}):\n{log[-3000:]}")
+    return [torch.load(os.path.join(job_dir, f"out_{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _job_dir(name):
+    import shutil
+
+    from nlpartsol_tpu_torch.ops import cuda_build
+
+    d = os.path.join(cuda_build.BUILD_DIR, name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def _explicit_reference(dim, device):
+    """(grid, p0, mats, cfg, h, by-pid state after the parity steps, their
+    per-step nnz) of the single-device fused run: the parity phase's when it
+    ran, else run here."""
+    from nlpartsol_tpu_torch.formulations.explicit import run
+
+    key = "explicit" + _suffix(dim)
+    if key not in SHARED:
+        grid, p0, mats, cfg, h = build_problem(dim, PROBLEMS[dim]["n_side"], device)
+        pf, diag = run(p0, grid, mats, cfg, PROBLEMS[dim]["parity_steps"])
+        _check_state(key + ":reference", pf, diag)
+        SHARED[key] = (grid, p0, mats, cfg, h, _by_pid_numpy(pf),
+                       [int(n) for n in diag["nnz"].long()])
+    return SHARED[key]
+
+
+def _sharded_s1(device):
+    """S = 1 in this process, no group: the sharded driver's overhead over
+    the main path (bench.py's sharded leg), 16 + 32 steps."""
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+    from nlpartsol_tpu_torch.parallel import domain
+
+    grid, p0, mats, cfg, h, _, _ = _explicit_reference(2, device)
+    offs = ft._geom(grid, cfg.lme_params, 0).offsets
+    dec = domain.decompose(grid, cfg.active_box, 1, np.asarray(offs), margin=1)
+    (p,) = domain.shard_particles(p0, dec)
+    (g,) = domain.shard_grid(grid, dec)
+    body = torch.zeros(2, device=device)
+    p, _ = domain.sharded_explicit_run(dec, cfg, SHARDED["s1_warm"])(p, g, mats, body)
+    ft.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, diag = domain.sharded_explicit_run(dec, cfg, SHARDED["s1_steps"])(p, g, mats, body)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / SHARDED["s1_steps"]
+    return dict(ms_per_step=ms, main_path_ms_per_step=REPORT.get("main_path"),
+                overhead=ms / REPORT["main_path"] - 1.0 if "main_path" in REPORT else None,
+                launches=dict(ft.launch_counts), lost=int(diag["lost"]))
+
+
+def _implicit_reference(device):
+    """The implicit 256² problem and the single-device fused step from it."""
+    from nlpartsol_tpu_torch.formulations.explicit import to_slot_layout
+    from nlpartsol_tpu_torch.formulations.implicit import implicit_step
+
+    if "implicit" not in SHARED:
+        grid, p0, mats, cfg, h = build_implicit(2, device, SHARDED_IMPLICIT["n_side"])
+        p = to_slot_layout(p0, grid, cfg.active_box)
+        body = torch.zeros(2, device=device)
+        newton = []
+        for _ in range(SHARDED_IMPLICIT["steps"]):
+            p, dg = implicit_step(p, grid, mats, cfg, body)
+            if not bool(dg["converged"]) or int(dg["lost"]):
+                raise PhaseError(f"sharded_implicit:reference: {dg['newton_iters']} Newton, "
+                                 f"converged {bool(dg['converged'])}, lost {int(dg['lost'])}")
+            newton.append(int(dg["newton_iters"]))
+        SHARED["implicit"] = (grid, p0, mats, cfg, h, _by_pid_numpy(p), newton)
+    return SHARED["implicit"]
+
+
+def _prepare_sharded(device, phases):
+    """The 1-D ranks' job and the references their results are held to."""
+    from nlpartsol_tpu_torch.formulations import upw
+    from nlpartsol_tpu_torch.formulations.explicit import run as erun, to_slot_layout
+
+    job, refs = dict(phases=[]), {}
+    if phases & {"sharded", "multihost"}:
+        grid, p0, mats, cfg, h, ref, nnz = _explicit_reference(2, device)
+        job["sharded"] = dict(grid=_cpu(grid), p0=_cpu(p0), mats=_cpu(mats), cfg=cfg, h=h,
+                              **SHARDED)
+        refs["sharded"] = (ref, nnz, h)
+        job["phases"].append("sharded")
+    if "sharded3d" in phases:
+        grid, p0, mats, cfg, h, ref, nnz = _explicit_reference(3, device)
+        job["sharded3d"] = dict(grid=_cpu(grid), p0=_cpu(p0), mats=_cpu(mats), cfg=cfg, h=h,
+                                **SHARDED3D)
+        refs["sharded3d"] = (ref, nnz, h)
+        job["phases"].append("sharded3d")
+    if "sharded_implicit" in phases:
+        grid, p0, mats, cfg, h, ref, newton = _implicit_reference(device)
+        job["sharded_implicit"] = dict(grid=_cpu(grid), p0=_cpu(p0), mats=_cpu(mats), cfg=cfg,
+                                       steps=SHARDED_IMPLICIT["steps"])
+        refs["sharded_implicit"] = (ref, newton, h)
+        job["phases"].append("sharded_implicit")
+    if "sharded_upw" in phases:
+        spec = SHARDED_UPW
+        grid, p0, mats, mix, cfg, h = build_upw(device, implicit=False)
+        pr, dg = upw.run(p0, grid, mats, mix, cfg, spec["warm"] + spec["steps"], _upw_body(p0))
+        _check_upw("sharded_upw:reference", pr, dg["lost"].sum())
+        gn, pn0, mn, mixn, cfgn, hn = build_upw(device, implicit=True,
+                                                 n_side=spec["newmark_n_side"])
+        cfgn = cfgn.replace(dt=cfgn.dt / 20.0 * spec["newmark_dt_factor"],
+                            krylov_maxiter=spec["newmark_krylov_maxiter"])
+        pn = to_slot_layout(pn0, gn, cfgn.active_box)
+        pn, dn = upw.upw_newmark_step(pn, gn, mn, mixn, cfgn, _upw_body(pn))
+        _check_upw("sharded_upw:newmark_reference", pn, dn["lost"])
+        job["sharded_upw"] = dict(
+            explicit=dict(grid=_cpu(grid), p0=_cpu(p0), mats=_cpu(mats), mix=_cpu(mix), cfg=cfg,
+                          warm=spec["warm"], steps=spec["steps"]),
+            newmark=dict(grid=_cpu(gn), p0=_cpu(pn0), mats=_cpu(mn), mix=_cpu(mixn), cfg=cfgn))
+        refs["sharded_upw"] = (_by_pid_numpy(pr, ("x", "v", "pw")), h,
+                               _by_pid_numpy(pn, ("x", "v", "pw")), int(dn["newton_iters"]),
+                               int(dn["cg_iters"]), hn)
+        job["phases"].append("sharded_upw")
+    if "sharded_fracture" in phases:
+        grid, p0, mats, cfg, h = build_fracture(2, PROBLEMS[2]["n_side"], device, "eigenerosion")
+        pr, dg = erun(p0, grid, mats, cfg, SHARDED_FRACTURE["steps"])
+        _check_state("sharded_fracture:reference", pr, dg)
+        job["sharded_fracture"] = dict(grid=_cpu(grid), p0=_cpu(p0), mats=_cpu(mats), cfg=cfg,
+                                       steps=SHARDED_FRACTURE["steps"])
+        refs["sharded_fracture"] = (_by_pid_numpy(pr, ("x", "v", "damage", "strain_f")), h,
+                                    float(pr.damage[pr.active].mean()))
+        job["phases"].append("sharded_fracture")
+    job["multihost"] = "multihost" in phases
+    return job, refs
+
+
+def _want_launches(dim, steps):
+    return {f"lme_scatter{dim}d:solve": steps, f"lme_scatter{dim}d:G": steps,
+            f"lme_gather{dim}d:N+grad": steps, f"lme_gather{dim}d:N": steps}
+
+
+def _report_explicit(label, outs, refs, world, spec, dim):
+    ref, nnz_ref, h = refs[label]
+    got = _merge_ranks([o[label]["parity"] for o in outs])
+    par = _parity_np(got, ref, h, label)
+    nnz = outs[0][label]["parity_nnz"]
+    lost = [o[label]["lost"] for o in outs]
+    want = _want_launches(dim, spec["steps"])
+    launches = [o[label]["launches"] for o in outs]
+    ms = max(o[label]["ms"] for o in outs)
+    ok = (par["rel_dx"] < SHARDED_PARITY["dx"] and par["rel_dv"] < SHARDED_PARITY["dv"]
+          and nnz == nnz_ref and not any(lost) and all(c == want for c in launches))
+    PATH_LAUNCHES[label] = ("", {k: v / spec["steps"] for k, v in launches[0].items()})
+    say(phase=label, **_transport(outs, world), parity_steps=spec["parity_steps"],
+        steps=spec["steps"], ms_per_step=ms / spec["steps"], **par,
+        limit_dx=SHARDED_PARITY["dx"], limit_dv=SHARDED_PARITY["dv"], nnz_equal=nnz == nnz_ref,
+        nnz_per_step=nnz[-1], lost=lost, launches_per_rank=launches,
+        **_shard_stats(outs[0][label], spec["steps"]),
+        particles_per_rank=[o[label]["n_active"] for o in outs],
+        moved_between_ranks=sum(o[label]["arrived"] for o in outs),
+        s1=outs[0][label].get("s1"), ok=ok)
+    if not ok:
+        raise PhaseError(f"{label}: {par}, nnz equal {nnz == nnz_ref}, lost {lost}, "
+                         f"launches {launches}")
+
+
+def phase_sharded(device, phases):
+    """The 1-D sharded phases on S = 2 ranks sharing the card (one launch),
+    then ``sharded2d`` on 2×2 ranks (another)."""
+    t0 = time.perf_counter()
+    s1 = _sharded_s1(device) if "sharded" in phases else None
+    job, refs = _prepare_sharded(device, phases)
+    torch.cuda.empty_cache()
+    prep_s = time.perf_counter() - t0
+    if job["phases"]:
+        world = SHARDED["shards"]
+        t1 = time.perf_counter()
+        outs = _launch_ranks(_job_dir("sharded_job"), world, job)
+        launch_s = time.perf_counter() - t1
+        if "sharded" in job["phases"]:
+            outs[0]["sharded"]["s1"] = s1
+            _report_explicit("sharded", outs, refs, world, SHARDED, 2)
+        if "sharded3d" in job["phases"]:
+            _report_explicit("sharded3d", outs, refs, world, SHARDED3D, 3)
+        if "sharded_implicit" in job["phases"]:
+            _report_sharded_implicit(outs, refs, world)
+        if "sharded_upw" in job["phases"]:
+            _report_sharded_upw(outs, refs, world)
+        if "sharded_fracture" in job["phases"]:
+            _report_sharded_fracture(outs, refs, world)
+        if job["multihost"]:
+            _report_multihost(outs, world, SHARDED["steps"])
+        say(phase="sharded_launch", ranks=world, prepare_s=prep_s, launch_s=launch_s,
+            rank_seconds={p: max(o[p]["seconds"] for o in outs) for p in job["phases"]})
+    if "sharded2d" in phases:
+        phase_sharded2d(device)
+
+
+def _report_sharded_implicit(outs, refs, world):
+    label = "sharded_implicit"
+    ref, newton_ref, h = refs[label]
+    res = [o[label] for o in outs]
+    par = _parity_np(_merge_ranks([r["state"] for r in res]), ref, h, label)
+    newton = [r["newton"] for r in res]
+    cg = [r["cg"] for r in res]
+    ok = (par["rel_dx"] < SHARDED_PARITY["dx"] and par["rel_dv"] < SHARDED_PARITY["dv"]
+          and all(r["converged"] for r in res) and not any(r["lost"] for r in res)
+          and all(n == newton_ref for n in newton) and all(c == cg[0] for c in cg))
+    PATH_LAUNCHES[label] = ("implicit", {k: v / len(newton[0])
+                                         for k, v in res[0]["launches"].items()})
+    say(phase=label, **_transport(outs, world), steps=len(newton[0]),
+        ms_per_step=max(r["ms"] for r in res) / len(newton[0]), **par,
+        newton_per_rank=newton, newton_single_device=newton_ref, cg_per_rank=cg,
+        converged=[r["converged"] for r in res], lost=[r["lost"] for r in res],
+        launches_per_rank=[r["launches"] for r in res],
+        **_shard_stats(res[0], len(newton[0])), ok=ok)
+    if not ok:
+        raise PhaseError(f"{label}: {par}, Newton {newton} against {newton_ref}, CG {cg}")
+
+
+def _report_sharded_upw(outs, refs, world):
+    label = "sharded_upw"
+    ref_e, h, ref_n, newton_ref, gmres_ref, hn = refs[label]
+    res = [o[label] for o in outs]
+    pe = _parity_np(_merge_ranks([r["explicit"] for r in res]), ref_e, h, label, ("pw",))
+    pn = _parity_np(_merge_ranks([r["newmark"] for r in res]), ref_n, hn, label, ("pw",))
+    newton = [r["newton"] for r in res]
+    ok = (pe["rel_dx"] < SHARDED_PARITY["dx"] and pe["rel_dv"] < SHARDED_PARITY["dv"]
+          and pe["rel_dpw"] < SHARDED_PARITY["pw_explicit"]
+          and pn["rel_dx"] < SHARDED_PARITY["dx"] and pn["rel_dv"] < SHARDED_PARITY["dv"]
+          and pn["rel_dpw"] < SHARDED_PARITY["pw_newmark"]
+          and all(n == newton_ref for n in newton) and not any(r["lost"] for r in res))
+    PATH_LAUNCHES[label] = ("upw", {k: v / SHARDED_UPW["steps"]
+                                    for k, v in res[0]["launches"].items()})
+    say(phase=label, **_transport(outs, world), explicit=dict(
+            grid=f"{UPW['n_side']}x{UPW['n_side']}", warm=SHARDED_UPW["warm"], steps=SHARDED_UPW["steps"],
+            ms_per_step=max(r["ms"] for r in res) / SHARDED_UPW["steps"], **pe,
+            limit_pw=SHARDED_PARITY["pw_explicit"],
+            launches_per_rank=[r["launches"] for r in res]),
+        **_shard_stats(res[0], SHARDED_UPW["steps"]),
+        newmark=dict(grid=f"{SHARDED_UPW['newmark_n_side']}x{SHARDED_UPW['newmark_n_side']}",
+                     dt_over_explicit=SHARDED_UPW["newmark_dt_factor"],
+                     krylov_maxiter=SHARDED_UPW["newmark_krylov_maxiter"], **pn,
+                     limit_pw=SHARDED_PARITY["pw_newmark"], newton_per_rank=newton,
+                     newton_single_device=newton_ref, gmres_per_rank=[r["gmres"] for r in res],
+                     gmres_single_device=gmres_ref, ms=max(r["newmark_ms"] for r in res)),
+        lost=[r["lost"] for r in res], ok=ok)
+    if not ok:
+        raise PhaseError(f"{label}: explicit {pe}, Newmark {pn}, Newton {newton} "
+                         f"against {newton_ref}")
+
+
+def _report_sharded_fracture(outs, refs, world):
+    label = "sharded_fracture"
+    ref, h, eroded = refs[label]
+    res = [o[label] for o in outs]
+    got = _merge_ranks([r["state"] for r in res])
+    par = _parity_np(got, ref, h, label)
+    # the fracture phase's gates (_damage_parity): damage decisions as counts
+    # of particles, the strain_f gap where both triggered
+    decisions = int((got["damage"] != ref["damage"]).sum())
+    both = (got["strain_f"] > 0) & (ref["strain_f"] > 0)
+    sf_gap = float(np.where(both, np.abs(got["strain_f"] - ref["strain_f"]), 0.0).max()) / max(
+        float(np.abs(ref["strain_f"]).max()), 1e-30)
+    ok = (par["rel_dx"] < FRACTURE_PARITY["dx"] and par["rel_dv"] < FRACTURE_PARITY["dv"]
+          and decisions <= FRACTURE_PARITY["decisions"] and sf_gap <= FRACTURE_PARITY["strain_f"]
+          and not any(r["lost"] for r in res) and eroded > 0.0)
+    say(phase=label, **_transport(outs, world), steps=SHARDED_FRACTURE["steps"],
+        ms_per_step=max(r["ms"] for r in res) / SHARDED_FRACTURE["steps"], **par,
+        other_decisions=decisions, limit_decisions=FRACTURE_PARITY["decisions"],
+        strain_f_gap=sf_gap, eroded_share=eroded, lost=[r["lost"] for r in res],
+        launches_per_rank=[r["launches"] for r in res],
+        **_shard_stats(res[0], SHARDED_FRACTURE["steps"]), ok=ok)
+    if not ok:
+        raise PhaseError(f"{label}: {par}, {decisions} other decisions, strain_f {sf_gap}")
+
+
+def _report_multihost(outs, world, steps):
+    """gather_particles on every rank equals unshard_particles of the
+    ranks' strips; the shards' VTK files together are the gathered cloud."""
+    res = [o["multihost"] for o in outs]
+    whole = _merge_ranks([r["mine"] for r in res])
+    gathered_equal = all(
+        r["gathered"]["pid"].shape == whole["pid"].shape
+        and all(np.array_equal(r["gathered"][n], whole[n]) for n in whole) for r in res)
+    # each shard's file holds its active particles in pid order
+    pts = np.concatenate([_vtk_points(path) for r in res for path in r["paths"]])[:, :2]
+    want = np.concatenate([r["mine"]["x"] for r in res]).astype(np.float64)
+    vtk_gap = float(np.abs(pts - want).max()) if pts.shape == want.shape else float("inf")
+    ok = gathered_equal and vtk_gap <= 1e-6 * max(1.0, float(np.abs(want).max()))
+    say(phase="multihost", **_transport(outs, world), **_shard_stats(outs[0]["sharded"], steps),
+        particles=int(whole["pid"].size),
+        gather_equals_unshard=gathered_equal, vtk_files=[len(r["paths"]) for r in res],
+        vtk_points=int(pts.shape[0]), vtk_max_gap=vtk_gap,
+        gather_ms=max(r["gather_ms"] for r in res), vtk_s=max(r["vtk_s"] for r in res), ok=ok)
+    if not ok:
+        raise PhaseError(f"multihost: gather equal {gathered_equal}, VTK gap {vtk_gap}")
+
+
+def _vtk_points(path):
+    """The (n, 3) POINTS of a legacy ASCII VTK file."""
+    with open(path) as fh:
+        text = fh.read()
+    head, _, rest = text.partition("POINTS ")
+    n = int(rest.split(None, 1)[0])
+    body = rest.split("\n", 1)[1]
+    return np.array(body.split(None, 3 * n)[:3 * n], dtype=np.float64).reshape(n, 3)
+
+
+def phase_sharded2d(device):
+    """2×2 ranks on the card: bench.py's 512² explicit step (a re-bin every
+    step, two-phase migration every step) and the implicit 256² step, each
+    against its single-device fused run by pid."""
+    from nlpartsol_tpu_torch.formulations.explicit import run
+
+    spec = SHARDED2D
+    grid, p0, mats, cfg, h = build_problem(2, PROBLEMS[2]["n_side"], device)
+    cfg = cfg.replace(rebin_every=1)
+    pr, dg = run(p0, grid, mats, cfg, spec["explicit_steps"])
+    _check_state("sharded2d:reference", pr, dg)
+    gi, pi0, mi, cfgi, hi, ref_i, newton_ref = _implicit_reference(device)
+    job = dict(phases=["sharded2d"], sharded2d=dict(
+        explicit=dict(grid=_cpu(grid), p0=_cpu(p0), mats=_cpu(mats), cfg=cfg,
+                      steps=spec["explicit_steps"]),
+        implicit=dict(grid=_cpu(gi), p0=_cpu(pi0), mats=_cpu(mi), cfg=cfgi,
+                      steps=spec["implicit_steps"])), multihost=False)
+    torch.cuda.empty_cache()
+    world = spec["shards"][0] * spec["shards"][1]
+    t0 = time.perf_counter()
+    outs = _launch_ranks(_job_dir("sharded2d_job"), world, job)
+    launch_s = time.perf_counter() - t0
+    res = [o["sharded2d"] for o in outs]
+    pe = _parity_np(_merge_ranks([r["explicit"] for r in res]), _by_pid_numpy(pr), h, "sharded2d")
+    pi = _parity_np(_merge_ranks([r["implicit"] for r in res]), ref_i, hi, "sharded2d")
+    newton = [r["newton"] for r in res]
+    ok = (pe["rel_dx"] < SHARDED_PARITY["dx"] and pe["rel_dv"] < SHARDED_PARITY["dv"]
+          and pi["rel_dx"] < SHARDED_PARITY["dx"] and pi["rel_dv"] < SHARDED_PARITY["dv"]
+          and all(n == newton_ref for n in newton) and all(r["converged"] for r in res)
+          and not any(r["lost"] for r in res)
+          and all(r["launches"] == _want_launches(2, spec["explicit_steps"]) for r in res))
+    say(phase="sharded2d", **_transport(outs, world, spec["shards"]), explicit=dict(
+            steps=spec["explicit_steps"], ms_per_step=max(r["ms"] for r in res)
+            / spec["explicit_steps"], **pe, launches_per_rank=[r["launches"] for r in res]),
+        **_shard_stats(res[0], spec["explicit_steps"]),
+        implicit=dict(steps=spec["implicit_steps"], **pi, newton_per_rank=newton,
+                      newton_single_device=newton_ref, cg_per_rank=[r["cg"] for r in res]),
+        lost=[r["lost"] for r in res], launch_s=launch_s, ok=ok)
+    if not ok:
+        raise PhaseError(f"sharded2d: explicit {pe}, implicit {pi}, Newton {newton}")
+
+
+# ----- the ranks' side (``--sharded-rank``) --------------------------------
+
+
+def _rank_state(p, dec, comm, names=("x", "v")):
+    """This rank's active particles in world coordinates, by pid, on the
+    host."""
+    from nlpartsol_tpu_torch.parallel import multihost
+
+    (_, arrays), = multihost.addressable_particles(p, dec, comm)
+    act = arrays["active"]
+    o = np.argsort(arrays["pid"][act])
+    return {n: arrays[n][act][o] for n in ("pid",) + tuple(names)}
+
+
+def _rank_timed(fn, comm):
+    """``fn()`` timed on the host clock between synchronisations and a
+    barrier, with the launch and transport counts set to 0 just before."""
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+
+    torch.distributed.barrier(group=comm.group)
+    comm.reset_stats()
+    ft.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0), dict(ft.launch_counts), dict(comm.stats)
+
+
+def _rank_problem(spec, dev):
+    return (spec["grid"].to(dev), spec["p0"].to(dev), spec["mats"].to(dev),
+            spec.get("cfg"))
+
+
+def _offsets(grid, cfg):
+    from nlpartsol_tpu_torch.ops import fused_transfer as ft
+
+    return np.asarray(ft._geom(grid, cfg.lme_params, 0).offsets)
+
+
+def _strip(p0, grid, dec, comm):
+    from nlpartsol_tpu_torch.parallel import multihost
+
+    return (multihost.shard_particles_global(p0, dec, comm),
+            multihost.shard_grid_global(grid, dec, comm))
+
+
+def _rank_explicit(spec, comm, dev, job_dir, multihost_check):
+    from nlpartsol_tpu_torch.parallel import domain, multihost
+
+    grid, p0, mats, cfg = _rank_problem(spec, dev)
+    margin = 0 if cfg.rebin_every == 1 else 1
+    dec = domain.decompose(grid, cfg.active_box, comm.size, _offsets(grid, cfg),
+                           margin=margin).on(comm)
+    p, g = _strip(p0, grid, dec, comm)
+    start = set(p.pid[p.active].tolist())
+    body = torch.zeros(grid.dim, device=dev)
+    p, dg = domain.sharded_explicit_run(dec, cfg, spec["parity_steps"])(p, g, mats, body)
+    out = dict(parity=_rank_state(p, dec, comm), parity_nnz=[int(n) for n in dg["nnz"].long()],
+               lost=int(dg["lost"]))
+    (p, dg), ms, launches, stats = _rank_timed(
+        lambda: domain.sharded_explicit_run(dec, cfg, spec["steps"])(p, g, mats, body), comm)
+    out.update(ms=ms, launches=launches, stats=stats, lost=out["lost"] + int(dg["lost"]),
+               n_active=int(p.active.sum()),
+               arrived=len(set(p.pid[p.active].tolist()) - start))
+    if multihost_check:
+        t0 = time.perf_counter()
+        gathered = multihost.gather_particles(p, comm)
+        whole = domain.unshard_particles(gathered, dec)
+        gather_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        paths = multihost.write_shard_vtk(job_dir, spec["steps"], p, dec, comm, fields=())
+        out["multihost"] = dict(gathered=_by_pid_numpy(whole), mine=_rank_state(p, dec, comm),
+                                paths=paths, gather_ms=gather_ms,
+                                vtk_s=time.perf_counter() - t0)
+    return out
+
+
+def _rank_implicit(spec, comm, dev, two=None):
+    from nlpartsol_tpu_torch.parallel import domain
+
+    grid, p0, mats, cfg = _rank_problem(spec, dev)
+    if two:
+        dec = domain.decompose2(grid, cfg.active_box, two, _offsets(grid, cfg)).on(comm)
+        run = domain.sharded_implicit_run2(dec, cfg, spec["steps"])
+    else:
+        dec = domain.decompose(grid, cfg.active_box, comm.size, _offsets(grid, cfg)).on(comm)
+        run = domain.sharded_implicit_run(dec, cfg, spec["steps"])
+    p, g = _strip(p0, grid, dec, comm)
+    (p, dg), ms, launches, stats = _rank_timed(
+        lambda: run(p, g, mats, torch.zeros(2, device=dev)), comm)
+    return dict(state=_rank_state(p, dec, comm), newton=dg["newton_iters"].tolist(),
+                cg=dg["cg_iters"].tolist(), converged=bool(dg["converged"].all()),
+                lost=int(dg["lost"]), ms=ms, launches=launches, stats=stats)
+
+
+def _rank_upw(spec, comm, dev):
+    from nlpartsol_tpu_torch.formulations import upw
+    from nlpartsol_tpu_torch.parallel import collectives, domain
+
+    e = spec["explicit"]
+    grid, p0, mats, cfg = _rank_problem(e, dev)
+    mix = e["mix"].to(dev)
+    dec = domain.decompose(grid, cfg.active_box, comm.size, _offsets(grid, cfg)).on(comm)
+    p, g = _strip(p0, grid, dec, comm)
+    body = _upw_body(p)
+    p, dw = domain.sharded_upw_run(dec, cfg, mix, e["warm"])(p, g, mats, body)
+    (p, dg), ms, launches, stats = _rank_timed(
+        lambda: domain.sharded_upw_run(dec, cfg, mix, e["steps"])(p, g, mats, body), comm)
+    out = dict(explicit=_rank_state(p, dec, comm, ("x", "v", "pw")), ms=ms, launches=launches,
+               stats=stats, lost=int(dw["lost"]) + int(dg["lost"]))
+    # the Newmark step with the halo in this loop (its migration after it)
+    n = spec["newmark"]
+    grid, p0, mats, cfg = _rank_problem(n, dev)
+    mix = n["mix"].to(dev)
+    dec = domain.decompose(grid, cfg.active_box, comm.size, _offsets(grid, cfg)).on(comm)
+    p, g = _strip(p0, grid, dec, comm)
+    cfgl = domain._localize_cfg(cfg, dec)
+
+    def newmark():
+        q, dn = upw.upw_newmark_step(p, g, mats, mix, cfgl, _upw_body(p))
+        q, lost = domain.migrate_local(q, dec.spec, g, dec.local_box)
+        return q, dn, int(collectives.all_sum([lost], comm)[0])
+
+    (p, dn, lost), ms_n, _, _ = _rank_timed(newmark, comm)
+    out.update(newmark=_rank_state(p, dec, comm, ("x", "v", "pw")),
+               newton=int(dn["newton_iters"]), gmres=int(dn["cg_iters"]), newmark_ms=ms_n)
+    out["lost"] += lost
+    return out
+
+
+def _rank_fracture(spec, comm, dev):
+    from nlpartsol_tpu_torch.parallel import domain
+
+    grid, p0, mats, cfg = _rank_problem(spec, dev)
+    dec = domain.decompose(grid, cfg.active_box, comm.size, _offsets(grid, cfg)).on(comm)
+    p, g = _strip(p0, grid, dec, comm)
+    (p, dg), ms, launches, stats = _rank_timed(
+        lambda: domain.sharded_explicit_run(dec, cfg, spec["steps"])(
+            p, g, mats, torch.zeros(2, device=dev)), comm)
+    return dict(state=_rank_state(p, dec, comm, ("x", "v", "damage", "strain_f")), ms=ms,
+                launches=launches, stats=stats, lost=int(dg["lost"]))
+
+
+def _rank_sharded2d(spec, comm, dev):
+    from nlpartsol_tpu_torch.parallel import domain
+
+    e = spec["explicit"]
+    grid, p0, mats, cfg = _rank_problem(e, dev)
+    dec = domain.decompose2(grid, cfg.active_box, comm.shape, _offsets(grid, cfg)).on(comm)
+    p, g = _strip(p0, grid, dec, comm)
+    (p, dg), ms, launches, stats = _rank_timed(
+        lambda: domain.sharded_explicit_run2(dec, cfg, e["steps"])(
+            p, g, mats, torch.zeros(2, device=dev)), comm)
+    out = dict(explicit=_rank_state(p, dec, comm), ms=ms, launches=launches, stats=stats,
+               lost=int(dg["lost"]))
+    imp = _rank_implicit(spec["implicit"], comm, dev, two=comm.shape)
+    out.update(implicit=imp["state"], newton=imp["newton"], cg=imp["cg"],
+               converged=imp["converged"])
+    out["lost"] += imp["lost"]
+    return out
+
+
+def run_rank(args):
+    """One rank of a sharded launch: join the gloo group, run the job's
+    phases on this rank's strips on the card, write the results."""
+    from nlpartsol_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"localhost:{args.port}", args.world, args.sharded_rank,
+                         timeout_s=SHARDED_GROUP_TIMEOUT_S)
+    job = torch.load(os.path.join(args.job, "job.pt"), weights_only=False)
+    shape = SHARDED2D["shards"] if "sharded2d" in job["phases"] else None
+    comm = multihost.global_comm(shape)
+    dev = multihost.local_device()
+    torch.cuda.set_device(dev)
+    out = dict(comm=dict(backend=comm.backend, device=torch.cuda.get_device_name(dev)))
+    for phase in job["phases"]:
+        t0 = time.perf_counter()
+        if phase in ("sharded", "sharded3d"):
+            out[phase] = _rank_explicit(job[phase], comm, dev, args.job,
+                                        phase == "sharded" and job["multihost"])
+            if "multihost" in out[phase]:
+                out["multihost"] = out[phase].pop("multihost")
+        elif phase == "sharded_implicit":
+            out[phase] = _rank_implicit(job[phase], comm, dev)
+        elif phase == "sharded_upw":
+            out[phase] = _rank_upw(job[phase], comm, dev)
+        elif phase == "sharded_fracture":
+            out[phase] = _rank_fracture(job[phase], comm, dev)
+        elif phase == "sharded2d":
+            out[phase] = _rank_sharded2d(job[phase], comm, dev)
+        out[phase]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(args.job, f"out_{args.sharded_rank}.pt"))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="kernels,main_path,parity,roofline,implicit,"
@@ -4764,8 +5472,14 @@ def main():
                     "implicit_models,implicit_models_parity,implicit_models3d,upw_models,"
                     "models_jv,deck,decks,"
                     "fracture,fracture3d,fracture_implicit,shapefuns,scatter,femesh,femesh3d,"
-                    "femesh_parity,femesh_scatter,probes,large3d,large",
+                    "femesh_parity,femesh_scatter,probes,sharded,sharded3d,sharded_implicit,"
+                    "sharded_upw,sharded_fracture,sharded2d,multihost,large3d,large",
                     help="comma-separated phases to run after device and build")
+    # one rank of a sharded launch (started by the sharded phases themselves)
+    ap.add_argument("--sharded-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -4774,6 +5488,9 @@ def main():
               file=sys.stderr)
         return 2
     import nlpartsol_tpu_torch  # noqa: F401  (fail before anything is printed)
+
+    if args.sharded_rank is not None:
+        return run_rank(args)
 
     device = "cuda"
     kind, smi = phase_device()
@@ -4882,6 +5599,9 @@ def main():
             torch.cuda.empty_cache()
     if "probes" in phases:
         rows += phase_probes(device)
+    if phases & (set(SHARDED_PHASES) | {"sharded2d"}):
+        phase_sharded(device, phases)
+        torch.cuda.empty_cache()
     # the large legs are optional: only with most of the time limit ahead
     for dim, before_s in ((3, 420.0), (2, 480.0)):
         if "large" + _suffix(dim) in phases and time.perf_counter() - T_START < before_s:

@@ -15,9 +15,11 @@ LME or FEM shape functions: the explicit NPC-FS step
 (``integrators.py``), implicit Newmark-β and quasi-static
 (``implicit.py``), the soil-water mixture explicit and implicit
 (``upw.py``), mixed u-p (``up.py``) and Discrete Energy-Momentum
-(``dem.py``), with every constitutive model of the reference on the
-explicit step.  What is not ported yet raises ``NotImplementedError``
-naming its item of ROADMAP.md queue 1.
+(``dem.py``), with every constitutive model of the reference on every
+step; and the halo-sharded grid across ranks of a ``torch.distributed``
+group (``parallel/``: 1-D and 2-D strips, seam migration, distributed
+Newton-Krylov).  What the JAX package has and the port leaves out raises
+``NotImplementedError`` naming ROADMAP.md's do-not-port list.
 
 Entry points create their tensors on ``device="cuda"`` unless the caller
 asks for another device; nothing falls back to the CPU on its own.

@@ -23,6 +23,7 @@ from .ops.windowed import ActiveBox
 from .shapefun.alme import ALMEParams
 from .shapefun.femesh import FEMesh
 from .shapefun.lme import LMEParams
+from .parallel import domain
 from .types import Grid, Particles
 
 _TRANSFER_NAMES = {"pallas": "fused"}
@@ -122,13 +123,12 @@ def femesh_from_numpy(fields: dict, device="cuda") -> FEMesh:
     return FEMesh(**{n: one(n, fields[n]) for n in names})
 
 
-def _config_from_fields(cls, fields: dict, waiting: dict):
+def _config_from_fields(cls, fields: dict):
     """A port config from the static fields of the JAX package's config
     (``dataclasses.asdict``-style dict, nested ``lme_params``,
     ``alme_params`` and ``active_box`` as dicts or objects with the same
     attribute names).  The transfer name ``'pallas'`` becomes ``'fused'``;
-    fields the port does not have (``waiting``: name → default) must hold
-    their defaults."""
+    a field the port's config does not have raises ``ValueError``."""
 
     def sub(sub_cls, v):
         if v is None or isinstance(v, sub_cls):
@@ -147,55 +147,97 @@ def _config_from_fields(cls, fields: dict, waiting: dict):
     default_transfer = {f.name: f.default for f in dataclasses.fields(cls)}["transfer"]
     kw["transfer"] = _TRANSFER_NAMES.get(kw.get("transfer"), kw.get("transfer", default_transfer))
     kw["kinds"] = tuple(kw.get("kinds", (3,)))
-    own = set(_fields(cls))
-    for name in [n for n in kw if n not in own]:
-        if name not in waiting:
-            raise ValueError(f"config_from_fields: unknown field '{name}'")
-        if kw[name] != waiting[name]:
-            raise NotImplementedError(
-                f"config field '{name}'={kw[name]!r} is not ported yet (see ROADMAP.md)"
-            )
-        del kw[name]
+    unknown = [n for n in kw if n not in set(_fields(cls))]
+    if unknown:
+        raise ValueError(f"config_from_fields: unknown field '{unknown[0]}'")
     return cls(**kw)
-
-
-# the JAX configs' field that waits for ROADMAP.md queue 1, item 15 (the
-# sharded drivers' pre-binned slot layout)
-_WAITING = {"prebinned": False}
 
 
 def config_from_fields(fields: dict) -> ExplicitConfig:
     """ExplicitConfig from the static fields of the JAX package's
     ExplicitConfig (see :func:`_config_from_fields`)."""
-    return _config_from_fields(ExplicitConfig, fields, _WAITING)
+    return _config_from_fields(ExplicitConfig, fields)
 
 
 def implicit_config_from_fields(fields: dict) -> ImplicitConfig:
     """ImplicitConfig from the static fields of the JAX package's
     ImplicitConfig (see :func:`_config_from_fields`); its ``'pallas'``
     transfer is the port's ``'fused'``."""
-    return _config_from_fields(ImplicitConfig, fields, {})
+    return _config_from_fields(ImplicitConfig, fields)
 
 
 def upw_config_from_fields(fields: dict) -> UpwConfig:
     """UpwConfig from the static fields of the JAX package's UpwConfig (see
     :func:`_config_from_fields`)."""
-    return _config_from_fields(UpwConfig, fields, _WAITING)
+    return _config_from_fields(UpwConfig, fields)
 
 
 def upw_implicit_config_from_fields(fields: dict) -> UpwImplicitConfig:
     """UpwImplicitConfig from the static fields of the JAX package's
     UpwImplicitConfig (see :func:`_config_from_fields`)."""
-    return _config_from_fields(UpwImplicitConfig, fields, _WAITING)
+    return _config_from_fields(UpwImplicitConfig, fields)
 
 
 def up_config_from_fields(fields: dict) -> UpConfig:
     """UpConfig from the static fields of the JAX package's UpConfig (see
     :func:`_config_from_fields`)."""
-    return _config_from_fields(UpConfig, fields, _WAITING)
+    return _config_from_fields(UpConfig, fields)
 
 
 def dem_config_from_fields(fields: dict) -> DEMConfig:
     """DEMConfig from the static fields of the JAX package's DEMConfig (see
     :func:`_config_from_fields`)."""
-    return _config_from_fields(DEMConfig, fields, _WAITING)
+    return _config_from_fields(DEMConfig, fields)
+
+
+def _get(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _box(b) -> ActiveBox:
+    return ActiveBox(offset=tuple(int(v) for v in _get(b, "offset")),
+                     cdims=tuple(int(v) for v in _get(b, "cdims")),
+                     capacity=int(_get(b, "capacity")))
+
+
+def _template_grid(g, device) -> Grid:
+    def opt(name):
+        v = _get(g, name)
+        return None if v is None else np.asarray(v)
+
+    return grid_from_numpy(_get(g, "dims"), _get(g, "spacing"), _get(g, "origin"),
+                           active=opt("active"), dirichlet_mask=opt("dirichlet_mask"),
+                           dirichlet_value=opt("dirichlet_value"), valid_lo=opt("valid_lo"),
+                           valid_hi=opt("valid_hi"), device=device)
+
+
+def decomp_from_fields(dec, comm=None, device="cuda") -> "domain.Decomp":
+    """The port's 1-D :class:`~.parallel.domain.Decomp` from the JAX
+    package's (its fields as attributes or dict keys; its axis name becomes
+    ``comm``, the group of this process)."""
+    sp = _get(dec, "spec")
+    spec = domain.HaloSpec(n_shards=int(_get(sp, "n_shards")), wlo=int(_get(sp, "wlo")),
+                           whi=int(_get(sp, "whi")), bc=int(_get(sp, "bc")),
+                           ln=int(_get(sp, "ln")), comm=comm)
+    return domain.Decomp(spec=spec, global_grid=_template_grid(_get(dec, "global_grid"), device),
+                         global_box=_box(_get(dec, "global_box")),
+                         local_grid=_template_grid(_get(dec, "local_grid"), device),
+                         local_box=_box(_get(dec, "local_box")),
+                         mig_capacity=int(_get(dec, "mig_capacity")),
+                         margin=int(_get(dec, "margin")))
+
+
+def decomp2_from_fields(dec, comm=None, device="cuda") -> "domain.Decomp2":
+    """The port's :class:`~.parallel.domain.Decomp2` from the JAX package's
+    2-D decomposition (see :func:`decomp_from_fields`)."""
+    sp = _get(dec, "spec")
+
+    def tup(name):
+        return tuple(int(v) for v in _get(sp, name))
+
+    spec = domain.HaloSpec2(shards=tup("shards"), wlo=tup("wlo"), whi=tup("whi"), bc=tup("bc"),
+                            ln=tup("ln"), comm=comm)
+    return domain.Decomp2(spec=spec, global_grid=_template_grid(_get(dec, "global_grid"), device),
+                          global_box=_box(_get(dec, "global_box")),
+                          local_grid=_template_grid(_get(dec, "local_grid"), device),
+                          local_box=_box(_get(dec, "local_box")), margin=int(_get(dec, "margin")))

@@ -83,9 +83,13 @@ def make_engine(cfg, grid, sf, offsets, mask):
     if cfg.transfer == "windowed":
         if cfg.active_box is None:
             raise ValueError("windowed transfer requires cfg.active_box")
-        return transfer.WindowedEngine(grid, cfg.active_box, offsets, mask)
+        if getattr(cfg, "halo", None) is not None:
+            # a rank's strip of a block-partitioned grid (parallel/domain.py);
+            # grid and active_box are the local templates
+            return transfer.HaloEngine(grid, cfg.active_box, offsets, mask, cfg.halo)
+        return transfer.WindowedEngine(grid, cfg.active_box, offsets, mask, cfg.axis_name)
     if cfg.transfer == "scatter":
-        return transfer.ScatterEngine(grid, sf["node_ids"], mask)
+        return transfer.ScatterEngine(grid, sf["node_ids"], mask, cfg.axis_name)
     if cfg.transfer == "binned":
         raise binned_refused()
     raise ValueError(f"unknown transfer {cfg.transfer}")
@@ -98,3 +102,36 @@ def found_lost(sf, act):
     if sf.get("found") is not None:
         return torch.sum(act & ~sf["found"], dtype=torch.int32)
     return torch.zeros((), dtype=torch.int32, device=act.device)
+
+
+def _same(f):
+    return f
+
+
+def halo_ops(cfg):
+    """(complete, fill) of the fused steps' node fields on a rank's strip
+    (``cfg.halo``, parallel/domain.py): the halo add after a scatter, the
+    ghost-plane fill before a gather; identities without a halo."""
+    halo = getattr(cfg, "halo", None)
+    if halo is None:
+        return _same, _same
+    from ..parallel import domain
+
+    return (lambda f: domain.halo_exchange_add(f, halo)), (lambda f: domain.halo_fill(f, halo))
+
+
+def global_sums(cfg, *scalars):
+    """A step's diagnostics summed over ``cfg.axis_name``'s group (one
+    all-reduce for all of them); as they are on one device."""
+    if getattr(cfg, "axis_name", None) is None:
+        return scalars
+    from ..parallel.collectives import all_sum
+
+    return tuple(all_sum(list(scalars), cfg.axis_name))
+
+
+def check_rebin_mode(cfg, modes=("local", "global", "none")):
+    """'none' (the sharded drivers re-bin by their migration) is the fused
+    engine's under a halo."""
+    if cfg.rebin_mode not in modes:
+        raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")

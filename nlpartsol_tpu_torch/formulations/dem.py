@@ -42,8 +42,10 @@ iteration; the 3 of the gathers: r₀, and ∇dU and ∇(V − Vₙ) at the end.
 
 Every material kind of the dispatch runs (``stress_mode='average-strain'``
 takes Neo-Hookean and Saint-Venant-Kirchhoff only, as in the JAX package).
-Not ported yet (raises ``NotImplementedError`` naming its item of
-ROADMAP.md queue 1): ``axis_name``/``rebin_mode='none'`` (item 15).
+Multi-device: ``axis_name`` (a ``parallel.collectives.Comm``) sums the
+particle diagnostics and, on the windowed and scatter engines, every P2G
+over the group (particles split over ranks, the grid replicated);
+``rebin_mode='none'`` re-bins nothing (an outside owner keeps the slots).
 On an unstructured ``FEMesh`` (shapefun/femesh.py) the step runs on the
 scatter engine only; 'windowed' and 'fused' raise ``ValueError``.
 ``transfer='binned'`` is on the do-not-port list (ROADMAP.md queue 2) and
@@ -70,8 +72,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import alme, lme
 from ..types import Grid, Particles
 from . import kinematics as kin
-from .common import (binned_refused, check_background, check_shapefun, found_lost,
-                     make_engine, shapefun_eval)
+from .common import (binned_refused, check_background, check_rebin_mode, check_shapefun,
+                     found_lost, global_sums, make_engine, shapefun_eval)
 from .explicit import _bin_to_slots, to_slot_layout
 from .implicit import _det_clamped
 
@@ -96,8 +98,12 @@ class DEMConfig:
     # active_box)
     transfer: str = "scatter"
     active_box: Optional[windowed.ActiveBox] = None
-    axis_name: Optional[str] = None  # multi-device (not ported yet)
-    # fused re-bin: 'local' (end-of-step windowed.local_rebin) or 'global'
+    # multi-device: the group of the P2G and diagnostic sums, a
+    # parallel.collectives.Comm
+    axis_name: Optional[object] = None
+    # particles already in slot layout: skip the step's own binning
+    prebinned: bool = False
+    # fused re-bin: 'local' (end-of-step windowed.local_rebin), 'none', or 'global'
     rebin_mode: str = "local"
     # midpoint stress: 'discrete-gradient' (Gonzalez, energy-exact) or
     # 'average-strain' (the reference's S(C_mid, J_mid), windowed and
@@ -109,20 +115,11 @@ class DEMConfig:
 
 
 def _check_supported(cfg: DEMConfig, p: Particles, grid):
-    def later(what, item, where):
-        return NotImplementedError(
-            f"{what} is not ported yet: ROADMAP.md queue 1, item {item}, '{where}'")
-
     check_background(cfg, grid)
 
     if p.dim not in (2, 3):
         raise ValueError(f"DEM steps run in 2D and 3D, not {p.dim}D")
-    if cfg.axis_name is not None:
-        raise later("axis_name sharding", 15, "Multi-device")
-    if cfg.rebin_mode == "none":
-        raise later("rebin_mode='none'", 15, "Multi-device")
-    if cfg.rebin_mode not in ("local", "global"):
-        raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")
+    check_rebin_mode(cfg)
     check_shapefun(cfg)
     if cfg.transfer == "binned":
         raise binned_refused()
@@ -263,20 +260,24 @@ def _stiffness_scale(p, mats, dt):
     return (lam_p + 2.0 * G_p) * p.vol0 * (0.5 * dt)
 
 
-def _diagnostics(res, nnz, lost, act, p_out, cs, p, m_nodes, V, Vn, W_n1, W_n):
+def _diagnostics(cfg, res, nnz, lost, act, p_out, cs, p, m_nodes, V, Vn, W_n1, W_n):
     """Newton counts and the energies: the particles' kinetic energy after
     the step (over the slots ``p_out`` holds active, re-binned or not) and
     their strain energy, and the grid-level audit the discrete gradient makes
-    exact to solver tolerance, ½Σ_A m_A(V² − Vn²) + Σ_p (W_{n+1} − W_n)·V0."""
+    exact to solver tolerance, ½Σ_A m_A(V² − Vn²) + Σ_p (W_{n+1} − W_n)·V0.
+    With ``cfg.axis_name`` the particle sums are summed over the group (the
+    grid's is whole on every rank)."""
     zero = torch.zeros((), dtype=V.dtype, device=V.device)
     m = m_nodes[:, None]
     dW_tot = torch.sum(torch.where(act, (W_n1 - W_n) * p.vol0, zero))
+    ke = 0.5 * torch.sum(torch.where(p_out.active, p_out.mass * torch.sum(p_out.v ** 2, -1), zero))
+    se = torch.sum(torch.where(act, cs.W * p.vol0, zero))
+    nnz, lost, ke, se, dW_tot = global_sums(cfg, nnz, lost, ke, se, dW_tot)
     return dict(
         nnz=nnz, newton_iters=res.iters, newton_residual=res.residual_norm,
         cg_iters=res.linear_iters, converged=res.converged, lost=lost,
-        kinetic_energy=0.5 * torch.sum(
-            torch.where(p_out.active, p_out.mass * torch.sum(p_out.v ** 2, -1), zero)),
-        strain_energy=torch.sum(torch.where(act, cs.W * p.vol0, zero)),
+        kinetic_energy=ke,
+        strain_energy=se,
         grid_energy_increment=0.5 * torch.sum(m * (V ** 2 - Vn ** 2)) + dW_tot,
         grid_kinetic_energy=0.5 * torch.sum(m * V ** 2),
     )
@@ -300,7 +301,7 @@ def dem_step(p: Particles, grid: Grid, mats: MaterialTable, cfg: DEMConfig, body
     d = p.dim
     dt = cfg.dt
     lost = torch.zeros((), dtype=torch.int32, device=p.x.device)
-    if cfg.transfer == "windowed":
+    if cfg.transfer == "windowed" and not cfg.prebinned:
         p, lost, _, _ = _bin_to_slots(p, grid, cfg.active_box, None, None)
     act = p.active
     sf, offsets = shapefun_eval(cfg, grid, p)
@@ -358,7 +359,7 @@ def dem_step(p: Particles, grid: Grid, mats: MaterialTable, cfg: DEMConfig, body
         F=F_n1, J=J_n1, bemi=cs.bemi, bemi_zz=cs.bemi_zz, stress=cs.tau, stress_zz=cs.tau_zz,
         W=cs.W, lme_lambda=p.lme_lambda if sf["lam"] is None else sf["lam"],
     )
-    return p_out, _diagnostics(res, count_nnz(mask), lost, act, p_out, cs, p, m_nodes, V, Vn,
+    return p_out, _diagnostics(cfg, res, count_nnz(mask), lost, act, p_out, cs, p, m_nodes, V, Vn,
                                _strain_energy(F_n1, p, mats, cfg.kinds), W_n)
 
 
@@ -371,9 +372,9 @@ def _dem_step_fused(p, grid, mats, cfg, body_accel):
     d = p.dim
     dt = cfg.dt
     C, nc = box.capacity, box.n_cells
-    local_mode = cfg.rebin_mode == "local"
+    local_mode = cfg.rebin_mode == "local" and not cfg.prebinned
     lost = torch.zeros((), dtype=torch.int32, device=p.x.device)
-    if not local_mode:
+    if not local_mode and not cfg.prebinned:
         p, lost, _, _ = _bin_to_slots(p, grid, box, None, None)
     act = p.active
     sel3 = act[:, None, None]
@@ -436,7 +437,7 @@ def _dem_step_fused(p, grid, mats, cfg, body_accel):
     )
     if local_mode:
         p_out, lost = windowed.local_rebin(p_out, grid, box)
-    return p_out, _diagnostics(res, nnz, lost, act, p_out, cs, p, m_nodes, V, Vn,
+    return p_out, _diagnostics(cfg, res, nnz, lost, act, p_out, cs, p, m_nodes, V, Vn,
                                _strain_energy(F_n1, pb, mats, cfg.kinds), W_n)
 
 

@@ -31,8 +31,15 @@ run on the slot layout of the windowed and fused engines, between the
 constitutive update and the internal forces; the scatter engine refuses
 them (``ValueError``, as in the JAX package).
 
-Not ported yet (each raises ``NotImplementedError`` naming its slice of
-ROADMAP.md queue 1): ``halo``/``axis_name``/``rebin_mode='none'`` (item 15).
+Multi-device (parallel/domain.py): with ``halo`` (a ``HaloSpec`` of the
+rank's strip) the windowed engine is the halo engine and the fused kernels
+run on the strip with its valid plane bounds, each scatter completed by a
+halo add and each gather fed by a ghost fill; ``rebin_mode='none'`` leaves
+the re-bin to the sharded driver's migration; ``axis_name`` (a
+``parallel.collectives.Comm``) sums the diagnostics over the group, and on
+the windowed and scatter engines without a halo sums every P2G (particles
+split over ranks, the grid replicated); the fracture drivers' Beps sums
+take a particle halo across the seams.
 On an unstructured ``FEMesh`` (shapefun/femesh.py) the step runs on the
 scatter engine only; 'windowed' and 'fused' raise ``ValueError``.
 ``transfer='binned'`` is on the do-not-port list (ROADMAP.md queue 2) and
@@ -60,8 +67,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import alme, lme
 from ..types import Grid, Particles
 from . import kinematics as kin
-from .common import (binned_refused, check_background, check_shapefun, found_lost,
-                     make_engine, shapefun_eval)
+from .common import (binned_refused, check_background, check_rebin_mode, check_shapefun,
+                     found_lost, global_sums, halo_ops, make_engine, shapefun_eval)
 
 Tensor = torch.Tensor
 
@@ -86,9 +93,15 @@ class ExplicitConfig:
     beps_reach: int = 1
     # F-bar volumetric-locking control (the cell is the patch)
     fbar: bool = False
-    # multi-device sharding (not ported yet)
-    axis_name: Optional[str] = None
+    # multi-device: the group of the diagnostics' sums (and, without a
+    # halo, of every P2G: particles split, grid replicated), a
+    # parallel.collectives.Comm; and the rank's strip (parallel.domain
+    # HaloSpec/HaloSpec2): grid and active_box are then local templates
+    axis_name: Optional[object] = None
     halo: Optional[object] = None
+    # particles already in slot layout (the sharded drivers re-bin by their
+    # migration): the windowed engine skips its own binning
+    prebinned: bool = False
     # fused transfer: re-bin particles to cells every k-th step only.  The
     # kernel window widens by a 1-cell drift margin, so correctness needs
     # max drift ≤ 1 cell between re-binnings: rebin_every ≤ 1/CFL.
@@ -100,6 +113,8 @@ class ExplicitConfig:
     #       (requires particle speed ≤ c/(k·CFL); violations are counted
     #       loudly in the 'lost' diagnostic)
     #   'global' — sort-based binning at step start (required with tractions)
+    #   'none'   — no re-bin in the step: the sharded drivers restore the slot
+    #       invariant by their migration (parallel/domain.py)
     rebin_mode: str = "local"
     # 'NPC-FS' for this step; 'FE' and 'Generalized-alpha' select
     # formulations/integrators.py in the driver (with ga_rb, the
@@ -112,20 +127,16 @@ class ExplicitConfig:
 
 
 def _check_supported(cfg: ExplicitConfig, p: Particles, grid):
-    def later(what, item, where):
-        return NotImplementedError(
-            f"{what} is not ported yet: ROADMAP.md queue 1, item {item}, '{where}'")
-
     check_background(cfg, grid)
 
     if p.dim not in (2, 3):
         raise ValueError(f"explicit steps run in 2D and 3D, not {p.dim}D")
-    if cfg.halo is not None or cfg.axis_name is not None:
-        raise later("halo / axis_name sharding", 15, "Multi-device")
-    if cfg.rebin_mode == "none":
-        raise later("rebin_mode='none'", 15, "Multi-device")
-    if cfg.rebin_mode not in ("local", "global"):
-        raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")
+    check_rebin_mode(cfg)
+    if cfg.halo is not None and cfg.transfer == "fused" and cfg.rebin_mode != "none":
+        raise ValueError("halo-sharded fused steps re-bin by the driver's "
+                         "domain.migrate_local after the step: use rebin_mode='none'")
+    if cfg.halo is not None and cfg.transfer == "scatter":
+        raise ValueError("a halo strip runs on the windowed or fused engine")
     if cfg.damage not in (None, "eigenerosion", "eigensoftening"):
         raise ValueError(f"unknown damage driver {cfg.damage}")
     if cfg.scheme != "NPC-FS":
@@ -211,7 +222,8 @@ def _damage(p, grid, mats, cfg, act, cs, J_n1, F_n1):
     damage_n1, strain_f_n1 = p.damage, p.strain_f
     if cfg.damage is not None:
         damage_n1, strain_f_n1 = fracture.damage_update(
-            p, grid, cfg.active_box, cfg.damage, mats, act, cs, J_n1, F_n1, cfg.beps_reach)
+            p, grid, cfg.active_box, cfg.damage, mats, act, cs, J_n1, F_n1, cfg.beps_reach,
+            halo=cfg.halo)
     return damage_n1, strain_f_n1, cs.tau * (1.0 - damage_n1)[:, None, None]
 
 
@@ -269,7 +281,7 @@ def explicit_step(
     dt = cfg.dt
     gamma = cfg.gamma
 
-    if cfg.transfer == "windowed":
+    if cfg.transfer == "windowed" and not cfg.prebinned:
         p, lost, traction, traction_area = _bin_to_slots(
             p, grid, cfg.active_box, traction, traction_area
         )
@@ -339,8 +351,9 @@ def explicit_step(
                      d_dis_p_smooth, p.lme_lambda if sf["lam"] is None else sf["lam"],
                      damage_n1, strain_f_n1, lme_beta)
     ke, se = _energies(p, act, v_new, cs)
+    nnz, ke, se, lost = global_sums(cfg, count_nnz(mask), ke, se, lost)
     diag = dict(
-        nnz=count_nnz(mask),
+        nnz=nnz,
         reactions=reactions,
         kinetic_energy=ke,
         strain_energy=se,
@@ -369,12 +382,20 @@ def _explicit_step_fused(
     params = cfg.lme_params
     local_mode = cfg.rebin_mode == "local" and traction is None
     lost = torch.zeros((), dtype=torch.int32, device=p.x.device)
+    # halo strip: scatters complete the owned planes by the neighbours' halo
+    # adds, gathers fill the ghost planes first; the kernels mask phantom
+    # planes by the strip grid's valid bounds
+    xadd, fill = halo_ops(cfg)
     # With rebin_every == 1 the kernel window needs no drift margin and the
     # re-bin runs every step; with rebin_every = k > 1 a 1-cell margin
     # widens the window and the re-bin fires only on rebin steps (k·CFL ≤ 1
-    # keeps drift ≤ 1 cell between firings).
+    # keeps drift ≤ 1 cell between firings).  Under 'none' the sharded
+    # driver's migration fires every k-th step (its halo is widened to
+    # match: domain.decompose(margin=1)).
     margin = 0 if cfg.rebin_every == 1 else 1
-    if local_mode:
+    if cfg.rebin_mode == "none":
+        local_mode = False
+    elif local_mode:
         # particles arrive on the slot invariant (binned to their cells by
         # to_slot_layout / the last end-of-step local_rebin)
         pass
@@ -403,6 +424,7 @@ def _explicit_step_fused(
     nodes1, lam_new, nnz = ft.fused_scatter(
         grid, box, params, x_t, lam_t, act_t, fN, solve=True, margin=margin
     )
+    nodes1 = xadd(nodes1)
     m_nodes = nodes1[:, 0]
     m_safe = torch.clamp(m_nodes, min=cfg.mass_tol)[:, None]
     d_dis_nodes = nodes1[:, 1 : 1 + d] / m_safe
@@ -412,9 +434,10 @@ def _explicit_step_fused(
         d_dis_nodes = torch.where(grid.dirichlet_mask, grid.dirichlet_value, d_dis_nodes)
 
     # --- gather #1: smoothed Δu + displacement gradient (→ ΔF) ---
+    d_dis_nodes_f = fill(d_dis_nodes).contiguous()
     d_dis_smooth, grad_du = ft.fused_gather(
         grid, box, params, x_t, lam_new, act_t,
-        gN=d_dis_nodes, g_grad=d_dis_nodes, margin=margin,
+        gN=d_dis_nodes_f, g_grad=d_dis_nodes_f, margin=margin,
     )
     DF = grad_du + torch.eye(d, dtype=grad_du.dtype, device=grad_du.device)
     DF, F_n1, J_n1, dFdt_n1, cs = _kinematics_and_stress(p, mats, cfg, box, DF, act)
@@ -431,7 +454,7 @@ def _explicit_step_fused(
         grid, box, params, x_t, lam_new, act_t, dummy, G_t=G_t,
         solve=False, margin=margin,
     )
-    forces = nodes2[:, 1 : 1 + d]
+    forces = xadd(nodes2)[:, 1 : 1 + d]
     if traction_forces is not None:
         forces = forces + traction_forces
 
@@ -445,7 +468,7 @@ def _explicit_step_fused(
 
     # --- gather #2: accelerations ---
     a_p, _ = ft.fused_gather(
-        grid, box, params, x_t, lam_new, act_t, gN=accel_nodes.contiguous(),
+        grid, box, params, x_t, lam_new, act_t, gN=fill(accel_nodes).contiguous(),
         margin=margin,
     )
     v_new = v_pred + gamma * dt * a_p
@@ -460,6 +483,7 @@ def _explicit_step_fused(
         # only the steps that run() flags pay the re-bin — the
         # margin-widened kernels tolerate ≤ 1 cell of drift in between
         p_out, lost = windowed.local_rebin(p_out, grid, box)
+    nnz, ke, se, lost = global_sums(cfg, nnz, ke, se, lost)
     diag = dict(
         nnz=nnz,
         reactions=reactions,

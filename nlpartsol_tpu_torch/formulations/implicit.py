@@ -46,9 +46,12 @@ Every material kind of the dispatch runs: the J·v goes through the return
 mappings in forward mode, with the spectral tangent of
 ``ops.tensor.isotropic_map``, and the history (b_e, eps, kappa, back stress)
 is written from the converged iterate only.
-Not ported yet (raises ``NotImplementedError`` naming its item of
-ROADMAP.md queue 1): ``halo``/``axis_name`` and ``rebin_mode='none'``
-(item 15).
+Multi-device (parallel/domain.py): with ``halo`` the step runs on the
+rank's strip (the halo engine, or the fused kernels with a halo add after
+each scatter and a ghost fill before each gather, the forward-mode tangent
+included), and every dot and norm of the Newton-Krylov loop is an
+all-reduce over the halo's group, so every rank takes the same branches;
+``axis_name`` sums the diagnostics (and, without a halo, every P2G).
 On an unstructured ``FEMesh`` (shapefun/femesh.py) the step runs on the
 scatter engine only; 'windowed' and 'fused' raise ``ValueError``.
 ``transfer='binned'`` is on the do-not-port list (ROADMAP.md queue 2) and
@@ -75,8 +78,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import alme, lme
 from ..types import Grid, Particles
 from . import kinematics as kin
-from .common import (binned_refused, check_background, check_shapefun, found_lost,
-                     make_engine, shapefun_eval)
+from .common import (binned_refused, check_background, check_rebin_mode, check_shapefun,
+                     found_lost, global_sums, halo_ops, make_engine, shapefun_eval)
 from .explicit import _bin_to_slots, to_slot_layout
 
 Tensor = torch.Tensor
@@ -139,14 +142,18 @@ class ImplicitConfig:
     # 'eigenerosion' | 'eigensoftening'; the static cell reach of the Beps sums
     damage: Optional[str] = None
     beps_reach: int = 1
-    # multi-device sharding (not ported yet)
-    axis_name: Optional[str] = None
+    # multi-device: the group of the diagnostics' sums (and, without a
+    # halo, of every P2G), a parallel.collectives.Comm; the rank's strip
+    # (parallel.domain HaloSpec/HaloSpec2), whose group the solvers' dots
+    # are summed over
+    axis_name: Optional[object] = None
     halo: Optional[object] = None
     # particles already in slot layout: skip the step's own binning
     prebinned: bool = False
     # fused re-bin: 'local' (end-of-step windowed.local_rebin; per-step
     # drift must stay ≤ 1 cell, losses are counted in 'lost') or 'global'
-    # (sort-based binning at step start; tractions always take it)
+    # (sort-based binning at step start; tractions always take it), or
+    # 'none' (the sharded drivers' migration re-bins)
     rebin_mode: str = "local"
 
     def replace(self, **changes):
@@ -154,20 +161,13 @@ class ImplicitConfig:
 
 
 def _check_supported(cfg: ImplicitConfig, p: Particles, grid):
-    def later(what, item, where):
-        return NotImplementedError(
-            f"{what} is not ported yet: ROADMAP.md queue 1, item {item}, '{where}'")
-
     check_background(cfg, grid)
 
     if p.dim not in (2, 3):
         raise ValueError(f"implicit steps run in 2D and 3D, not {p.dim}D")
-    if cfg.halo is not None or cfg.axis_name is not None:
-        raise later("halo / axis_name sharding", 15, "Multi-device")
-    if cfg.rebin_mode == "none":
-        raise later("rebin_mode='none'", 15, "Multi-device")
-    if cfg.rebin_mode not in ("local", "global"):
-        raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")
+    check_rebin_mode(cfg)
+    if cfg.halo is not None and cfg.transfer == "scatter":
+        raise ValueError("a halo strip runs on the windowed or fused engine")
     if cfg.damage not in (None, "eigenerosion", "eigensoftening"):
         raise ValueError(f"unknown damage driver {cfg.damage}")
     check_shapefun(cfg)
@@ -254,11 +254,13 @@ def _jacobi(diag_K, m_nodes, free, nm, cfg):
 
 
 def _newton(residual, M_inv, n_nodes, d, like, cfg):
+    # grid-partitioned vectors (a halo strip): every dot and norm all-reduced
     return solvers.newton_krylov(
         residual,
         torch.zeros((n_nodes, d), dtype=like.dtype, device=like.device),
         M_inv=M_inv, tol=cfg.newton_tol, maxiter=cfg.newton_maxiter, cg_tol=cfg.cg_tol,
         cg_maxiter=cfg.cg_maxiter, linear=cfg.linear, forcing=cfg.forcing,
+        axis_name=None if cfg.halo is None else cfg.halo.comm,
     )
 
 
@@ -275,7 +277,7 @@ def _staggered_damage(p, grid, mats, cfg, act, cs, J_n1, F_n1):
     if cfg.damage is None:
         return p.damage, p.strain_f
     return tuple(fracture.damage_update(p, grid, cfg.active_box, cfg.damage, mats, act, cs,
-                                        J_n1, F_n1, cfg.beps_reach))
+                                        J_n1, F_n1, cfg.beps_reach, halo=cfg.halo))
 
 
 def _advance(p, act, cs, F_n1, dFdt_n1, J_n1, dis_inc, dv, da, a_blend, lam, damage=None,
@@ -442,8 +444,9 @@ def implicit_step(
     lme_beta = alme.update_beta(p.lme_beta, DF) if cfg.shapefun == "alme" else p.lme_beta
     p_out = _advance(p, act, cs, F_n1, dFdt_n1, J_n1, dis_inc, dv, da, a_blend, lam,
                      damage_n1, strain_f_n1, lme_beta)
+    nnz, lost = global_sums(cfg, count_nnz(w.mask), lost)
     diag_out = dict(
-        nnz=count_nnz(w.mask),
+        nnz=nnz,
         newton_iters=res.iters,
         newton_residual=res.residual_norm,
         cg_iters=res.linear_iters,
@@ -491,6 +494,10 @@ def _implicit_step_fused(
     fN = ft.to_channel_leading(torch.cat(chans, dim=1), C, nc)
     nodes1, lam_f, nnz = ft.fused_scatter(grid, box, cfg.lme_params, x_t, lam_t, act_t, fN,
                                           solve=True, gnorm=True)
+    # halo strip: owned-complete scatters, ghost-filled gathers (the
+    # tangents of the J·v too)
+    xadd, fill = halo_ops(cfg)
+    nodes1 = xadd(nodes1)
     m_nodes = nodes1[:, 0]
     m_safe = torch.clamp(m_nodes, min=cfg.mass_tol)[:, None]
     has_mass = (m_nodes > cfg.mass_tol)[:, None]
@@ -504,10 +511,10 @@ def _implicit_step_fused(
     geo = (grid, box, cfg.lme_params, x_t, lam_f, act_t, 0)
 
     def grad_gather(nodes):
-        return ft.GatherGrad.apply(nodes, geo)
+        return ft.GatherGrad.apply(fill(nodes), geo)
 
     def g_scatter(G):
-        return ft.ScatterG.apply(G, geo)[:, 1:1 + d]
+        return xadd(ft.ScatterG.apply(G, geo))[:, 1:1 + d]
 
     vel_const_nodes = (nm.alpha_5 - 1.0) * Un_dt + nm.alpha_6 * Un_dt2
     grad_vel_const = grad_gather(vel_const_nodes)
@@ -549,12 +556,13 @@ def _implicit_step_fused(
 
     a_blend = cfg.alpha_blend
     gfields = torch.cat([dU, dU_dt + (1.0 - a_blend) * Un_dt, dU_dt2], dim=1)
-    gout = ft.GatherN.apply(gfields, geo)
+    gout = ft.GatherN.apply(fill(gfields), geo)
     p_out = _advance(p, act, cs, F_n1, dFdt_n1, J_n1, gout[:, :d], gout[:, d:2 * d],
                      gout[:, 2 * d:], a_blend, ft.from_channel_leading(lam_f), damage_n1,
                      strain_f_n1)
     if local_mode:
         p_out, lost = windowed.local_rebin(p_out, grid, box)
+    nnz, lost = global_sums(cfg, nnz, lost)
     diag_out = dict(
         nnz=nnz,
         newton_iters=res.iters,

@@ -48,16 +48,10 @@ def generalized_alpha_parameters(rb: float):
 
 
 def _check_supported(cfg: ExplicitConfig, p: Particles, grid):
-    def later(what, item, where):
-        return NotImplementedError(
-            f"{what} is not ported yet: ROADMAP.md queue 1, item {item}, '{where}'")
-
     check_background(cfg, grid)
 
     if p.dim not in (2, 3):
         raise ValueError(f"explicit integrators run in 2D and 3D, not {p.dim}D")
-    if cfg.halo is not None or cfg.axis_name is not None:
-        raise later("halo / axis_name sharding", 15, "Multi-device")
     if cfg.damage is not None:
         raise ValueError("Forward-Euler / Generalized-alpha have no fracture hooks")
     check_shapefun(cfg)

@@ -40,8 +40,10 @@ u-pw step, formulations/upw.py), and launches:
 iterate.)  K = n + L/20 when no solve runs all its cycles.
 
 Every material kind of the dispatch runs.
-Not ported yet (raises ``NotImplementedError`` naming its item of
-ROADMAP.md queue 1): ``axis_name``/``rebin_mode='none'`` (item 15).
+Multi-device: ``axis_name`` (a ``parallel.collectives.Comm``) sums the
+diagnostics and, on the windowed and scatter engines, every P2G over the
+group (particles split over ranks, the grid replicated);
+``rebin_mode='none'`` re-bins nothing (an outside owner keeps the slots).
 On an unstructured ``FEMesh`` (shapefun/femesh.py) the step runs on the
 scatter engine only; 'windowed' and 'fused' raise ``ValueError``.
 ``transfer='binned'`` is on the do-not-port list (ROADMAP.md queue 2) and
@@ -67,8 +69,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import alme, lme
 from ..types import Grid, Particles
 from . import kinematics as kin
-from .common import (binned_refused, check_background, check_shapefun, found_lost,
-                     make_engine, shapefun_eval)
+from .common import (binned_refused, check_background, check_rebin_mode, check_shapefun,
+                     found_lost, make_engine, shapefun_eval)
 from .explicit import _bin_to_slots, to_slot_layout
 from .implicit import (_advance, _balance, _det_clamped, _free_dofs, _increments, _local_state,
                        newmark_parameters)
@@ -97,9 +99,13 @@ class UpConfig:
     # active_box)
     transfer: str = "scatter"
     active_box: Optional[windowed.ActiveBox] = None
-    axis_name: Optional[str] = None  # multi-device (not ported yet)
-    # fused re-bin: 'local' (end-of-step windowed.local_rebin) or 'global'
-    # (binning at step start; tractions always take it)
+    # multi-device: the group of the P2G and diagnostic sums, a
+    # parallel.collectives.Comm
+    axis_name: Optional[object] = None
+    # particles already in slot layout: skip the step's own binning
+    prebinned: bool = False
+    # fused re-bin: 'local' (end-of-step windowed.local_rebin), 'global'
+    # (binning at step start; tractions always take it) or 'none'
     rebin_mode: str = "local"
 
     def replace(self, **changes):
@@ -107,20 +113,11 @@ class UpConfig:
 
 
 def _check_supported(cfg: UpConfig, p: Particles, grid):
-    def later(what, item, where):
-        return NotImplementedError(
-            f"{what} is not ported yet: ROADMAP.md queue 1, item {item}, '{where}'")
-
     check_background(cfg, grid)
 
     if p.dim not in (2, 3):
         raise ValueError(f"u-p steps run in 2D and 3D, not {p.dim}D")
-    if cfg.axis_name is not None:
-        raise later("axis_name sharding", 15, "Multi-device")
-    if cfg.rebin_mode == "none":
-        raise later("rebin_mode='none'", 15, "Multi-device")
-    if cfg.rebin_mode not in ("local", "global"):
-        raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")
+    check_rebin_mode(cfg)
     check_shapefun(cfg)
     if cfg.transfer == "binned":
         raise binned_refused()
@@ -189,7 +186,7 @@ def up_step(
     d = p.dim
     nm = newmark_parameters(cfg.beta, cfg.gamma, cfg.dt)
     lost = torch.zeros((), dtype=torch.int32, device=p.x.device)
-    if cfg.transfer == "windowed":
+    if cfg.transfer == "windowed" and not cfg.prebinned:
         p, lost, traction, traction_area = _bin_to_slots(p, grid, cfg.active_box, traction,
                                                          traction_area)
     act = p.active
@@ -253,7 +250,7 @@ def up_step(
                      lme_beta=(alme.update_beta(p.lme_beta, DF) if cfg.shapefun == "alme"
                                else None))
     p_out = p_out.replace(pw=torch.where(act, lam_n1, p.pw))  # λ_n ← λ_{n+1}
-    return p_out, _implicit_diag(res, count_nnz(mask), lost)
+    return p_out, _implicit_diag(res, count_nnz(mask), lost, cfg)
 
 
 def _up_step_fused(p, grid, mats, cfg, body_accel, traction=None, traction_area=None):
@@ -265,9 +262,9 @@ def _up_step_fused(p, grid, mats, cfg, body_accel, traction=None, traction_area=
     d = p.dim
     nm = newmark_parameters(cfg.beta, cfg.gamma, cfg.dt)
     C, nc = box.capacity, box.n_cells
-    local_mode = cfg.rebin_mode == "local" and traction is None
+    local_mode = cfg.rebin_mode == "local" and traction is None and not cfg.prebinned
     lost = torch.zeros((), dtype=torch.int32, device=p.x.device)
-    if not local_mode:
+    if not local_mode and not cfg.prebinned:
         p, lost, traction, traction_area = _bin_to_slots(p, grid, box, traction, traction_area)
     act = p.active
     sel3 = act[:, None, None]
@@ -335,7 +332,7 @@ def _up_step_fused(p, grid, mats, cfg, body_accel, traction=None, traction_area=
     p_out = p_out.replace(pw=torch.where(act, lam_n1, p.pw))  # λ_n ← λ_{n+1}
     if local_mode:
         p_out, lost = windowed.local_rebin(p_out, grid, box)
-    return p_out, _implicit_diag(res, nnz, lost)
+    return p_out, _implicit_diag(res, nnz, lost, cfg)
 
 
 def run(p: Particles, grid: Grid, mats: MaterialTable, cfg: UpConfig, n_steps: int,

@@ -59,8 +59,12 @@ residual; the 2 of the gathers: the fixed fields, and the local state at the
 converged iterate.)  K = n + L/20 when no solve runs all its cycles.
 
 Every soil kind of the dispatch runs (``mix.soil_id`` selects the soil's
-row).  Not ported yet (raises ``NotImplementedError`` naming its item of
-ROADMAP.md queue 1): ``halo``/``axis_name``/``rebin_mode='none'`` (item 15).
+row).  Multi-device (parallel/domain.py): with ``halo`` both steps run on
+the rank's strip (the halo engine, or the kernels with a halo add after each
+scatter and a ghost fill before each gather, tangents included), the
+implicit step's Newton-GMRES dots all-reduced over the halo's group;
+``rebin_mode='none'`` leaves the re-bin to the sharded driver's migration;
+``axis_name`` sums the diagnostics (and, without a halo, every P2G).
 On an unstructured ``FEMesh`` (shapefun/femesh.py) the step runs on the
 scatter engine only; 'windowed' and 'fused' raise ``ValueError``.
 ``transfer='binned'`` is on the do-not-port list (ROADMAP.md queue 2) and
@@ -86,8 +90,8 @@ from ..ops.sparse import nnz as count_nnz
 from ..shapefun import alme, lme
 from ..types import Grid, Particles, Record
 from . import kinematics as kin
-from .common import (binned_refused, check_background, check_shapefun, found_lost,
-                     make_engine, shapefun_eval)
+from .common import (binned_refused, check_background, check_rebin_mode, check_shapefun,
+                     found_lost, global_sums, halo_ops, make_engine, shapefun_eval)
 from .explicit import _bin_to_slots, to_slot_layout
 from .implicit import newmark_parameters
 
@@ -127,11 +131,15 @@ class UpwConfig:
     # 'scatter' (any particle order)
     transfer: str = "windowed"
     active_box: Optional[windowed.ActiveBox] = None
-    axis_name: Optional[str] = None  # multi-device (not ported yet)
+    # multi-device: the group of the diagnostics' sums (and, without a
+    # halo, of every P2G), a parallel.collectives.Comm; the rank's strip
+    # (parallel.domain HaloSpec); particles pre-binned by the sharded driver
+    axis_name: Optional[object] = None
     gravity_g: float = -9.81
-    halo: Optional[object] = None  # multi-device (not ported yet)
-    # fused: 'local' re-bins at step end (windowed.local_rebin); the windowed
-    # engine bins at step start
+    halo: Optional[object] = None
+    prebinned: bool = False
+    # fused: 'local' re-bins at step end (windowed.local_rebin), 'none'
+    # leaves it to the sharded driver; the windowed engine bins at step start
     rebin_mode: str = "local"
 
     def replace(self, **changes):
@@ -157,11 +165,16 @@ class UpwImplicitConfig:
     # active_box), or 'scatter' (any particle order)
     transfer: str = "fused"
     active_box: Optional[windowed.ActiveBox] = None
-    axis_name: Optional[str] = None  # multi-device (not ported yet)
+    # multi-device: the group of the diagnostics' sums (and, without a
+    # halo, of every P2G), a parallel.collectives.Comm; the rank's strip
+    # (parallel.domain HaloSpec); particles pre-binned by the sharded driver
+    axis_name: Optional[object] = None
     gravity_g: float = -9.81
-    halo: Optional[object] = None  # multi-device (not ported yet)
+    halo: Optional[object] = None
+    prebinned: bool = False
     # fused: 'local' — particles arrive in slot layout, re-binned at step
-    # end; the windowed engine bins at step start
+    # end ('none': by the sharded driver); the windowed engine bins at step
+    # start
     rebin_mode: str = "local"
 
     def replace(self, **changes):
@@ -169,20 +182,16 @@ class UpwImplicitConfig:
 
 
 def _check_supported(cfg, p: Particles, grid):
-    def later(what, item, where):
-        return NotImplementedError(
-            f"{what} is not ported yet: ROADMAP.md queue 1, item {item}, '{where}'")
-
     check_background(cfg, grid)
 
     if p.dim not in (2, 3):
         raise ValueError(f"u-pw steps run in 2D and 3D, not {p.dim}D")
-    if cfg.halo is not None or cfg.axis_name is not None:
-        raise later("halo / axis_name sharding", 15, "Multi-device")
-    if cfg.rebin_mode == "none":
-        raise later("rebin_mode='none'", 15, "Multi-device")
-    if cfg.rebin_mode != "local":
-        raise ValueError(f"unknown rebin_mode {cfg.rebin_mode}")
+    check_rebin_mode(cfg, ("local", "none"))
+    if cfg.halo is not None and cfg.transfer == "fused" and cfg.rebin_mode != "none":
+        raise ValueError("halo-sharded fused steps re-bin by the driver's "
+                         "domain.migrate_local after the step: use rebin_mode='none'")
+    if cfg.halo is not None and cfg.transfer == "scatter":
+        raise ValueError("a halo strip runs on the windowed or fused engine")
     if cfg.transfer == "binned":
         raise binned_refused()
     if cfg.transfer not in ("windowed", "fused", "scatter"):
@@ -195,7 +204,7 @@ def _check_supported(cfg, p: Particles, grid):
 def _bin_windowed(p, grid, cfg):
     """The windowed engine bins to slots at step start; the scatter engine
     takes the particles in their order."""
-    if cfg.transfer == "windowed":
+    if cfg.transfer == "windowed" and not cfg.prebinned:
         p, lost, _, _ = _bin_to_slots(p, grid, cfg.active_box, None, None)
         return p, lost
     return p, torch.zeros((), dtype=torch.int32, device=p.x.device)
@@ -377,7 +386,8 @@ def upw_step(
         p, act, cs, (F_n1, dFdt_n1, J_n1, dJdt_n1), fluid, d_dis_smooth,
         v_pred + gamma * dt * a_p, a_p, pw_pred + gamma * dt * dpw_dt_p, dpw_dt_p,
         p.lme_lambda if sf["lam"] is None else sf["lam"])
-    return p_out, dict(nnz=count_nnz(mask), lost=lost)
+    nnz, lost = global_sums(cfg, count_nnz(mask), lost)
+    return p_out, dict(nnz=nnz, lost=lost)
 
 
 def _slot_geometry(p, box):
@@ -417,6 +427,9 @@ def _upw_step_fused(p, grid, mats, mix, cfg, body_accel, pw_dirichlet_mask=None,
              p.mass[:, None] * v_pred, (comp_density * pw_pred)[:, None]]
     nodes1, lam_new, nnz = ft.fused_scatter(grid, box, params, x_t, lam_t, act_t,
                                             tcl(torch.cat(chans, dim=1)), solve=True)
+    # halo strip: owned-complete scatters, ghost-filled gathers
+    xadd, fill = halo_ops(cfg)
+    nodes1 = xadd(nodes1)
     m_safe = torch.clamp(nodes1[:, 0], min=cfg.mass_tol)
     C_safe = torch.clamp(nodes1[:, 1], min=cfg.mass_tol)
     d_dis_nodes = nodes1[:, 2:2 + d] / m_safe[:, None]
@@ -432,8 +445,8 @@ def _upw_step_fused(p, grid, mats, mix, cfg, body_accel, pw_dirichlet_mask=None,
     def gather(gN=None, g_grad=None):
         return ft.fused_gather(
             grid, box, params, x_t, lam_new, act_t,
-            gN=None if gN is None else gN.contiguous(),
-            g_grad=None if g_grad is None else g_grad.contiguous())
+            gN=None if gN is None else fill(gN).contiguous(),
+            g_grad=None if g_grad is None else fill(g_grad).contiguous())
 
     # --- gather A: smoothed Δu and θ at the particles, ∇Δu ---
     gA, grad_du = gather(gN=torch.cat([d_dis_nodes, pw_nodes[:, None]], dim=1),
@@ -468,6 +481,7 @@ def _upw_step_fused(p, grid, mats, mix, cfg, body_accel, pw_dirichlet_mask=None,
     rate = torch.where(act, -(rho_f_n1 * dJdt_n1 * p.vol0), zero)
     nodes2, _, _ = ft.fused_scatter(grid, box, params, x_t, lam_new, act_t, tcl(rate),
                                     G_t=tcl(G_f.reshape(-1, d * d)), solve=False)
+    nodes2 = xadd(nodes2)
     src = nodes2[:, 0]
     accel_nodes = body_accel[None, :] + nodes2[:, 1:1 + d] / m_safe[:, None]
     if grid.dirichlet_mask is not None:
@@ -488,7 +502,7 @@ def _upw_step_fused(p, grid, mats, mix, cfg, body_accel, pw_dirichlet_mask=None,
     nodes3, _, _ = ft.fused_scatter(grid, box, params, x_t, lam_new, act_t,
                                     tcl(torch.zeros_like(p.mass)),
                                     G_t=tcl(G_src.reshape(-1, d * d)), solve=False)
-    src = src + nodes3[:, 1]
+    src = src + xadd(nodes3)[:, 1]
 
     dpw_dt_nodes = src / C_safe
     if pw_dirichlet_mask is not None:
@@ -502,7 +516,10 @@ def _upw_step_fused(p, grid, mats, mix, cfg, body_accel, pw_dirichlet_mask=None,
         p, act, cs, (F_n1, dFdt_n1, J_n1, dJdt_n1), fluid, d_dis_smooth,
         v_pred + gamma * dt * a_p, a_p, pw_pred + gamma * dt * dpw_dt_p, dpw_dt_p,
         ft.from_channel_leading(lam_new))
-    p_out, lost = windowed.local_rebin(p_out, grid, box)
+    lost = torch.zeros((), dtype=torch.int32, device=p.x.device)
+    if cfg.rebin_mode == "local":
+        p_out, lost = windowed.local_rebin(p_out, grid, box)
+    nnz, lost = global_sums(cfg, nnz, lost)
     return p_out, dict(nnz=nnz, lost=lost)
 
 
@@ -554,7 +571,8 @@ def _scaled_newton(residual_rows, free_u, free_t, diag_u, diag_t, h_ref, theta_r
     return solvers.newton_krylov(
         residual, torch.zeros((n_nodes, d + 1), dtype=like.dtype, device=like.device),
         M_inv=M_inv, tol=cfg.newton_tol, maxiter=cfg.newton_maxiter, cg_tol=cfg.krylov_tol,
-        cg_maxiter=cfg.krylov_maxiter, linear="gmres", threshold_mode="rel")
+        cg_maxiter=cfg.krylov_maxiter, linear="gmres", threshold_mode="rel",
+        axis_name=None if getattr(cfg, "halo", None) is None else cfg.halo.comm)
 
 
 def _scales(diag_K, m_nodes, C_nodes, darcy_diag, free_u, free_t, nm, cfg):
@@ -567,7 +585,8 @@ def _scales(diag_K, m_nodes, C_nodes, darcy_diag, free_u, free_t, nm, cfg):
     return diag_u, diag_t
 
 
-def _implicit_diag(res, nnz, lost):
+def _implicit_diag(res, nnz, lost, cfg):
+    nnz, lost = global_sums(cfg, nnz, lost)
     return dict(nnz=nnz, lost=lost, newton_iters=res.iters, newton_residual=res.residual_norm,
                 cg_iters=res.linear_iters, converged=res.converged)
 
@@ -699,7 +718,7 @@ def upw_newmark_step(
         p, act, cs, (F_n1, dFdt_n1, J_n1, dJdt_n1), fluid, eng.g2p(N, dU),
         a_blend * p.v + dv, p.a + eng.g2p(N, dU_dt2), theta_n1_p, dth_dt_p,
         p.lme_lambda if sf["lam"] is None else sf["lam"])
-    return p_out, _implicit_diag(res, count_nnz(mask), lost)
+    return p_out, _implicit_diag(res, count_nnz(mask), lost, cfg)
 
 
 def _upw_newmark_step_fused(p, grid, mats, mix, cfg, body_accel, pw_dirichlet_mask=None,
@@ -735,6 +754,10 @@ def _upw_newmark_step_fused(p, grid, mats, mix, cfg, body_accel, pw_dirichlet_ma
              p.mass[:, None] * p.v, p.mass[:, None] * p.a, stiff_scale[:, None]]
     nodes1, lam_f, nnz = ft.fused_scatter(grid, box, params, x_t, lam_t, act_t,
                                           tcl(torch.cat(chans, dim=1)), solve=True, gnorm=True)
+    # halo strip: owned-complete scatters, ghost-filled gathers (the
+    # tangents of the J·v too)
+    xadd, fill = halo_ops(cfg)
+    nodes1 = xadd(nodes1)
     m_nodes = nodes1[:, 0]
     m_safe = torch.clamp(m_nodes, min=cfg.mass_tol)
     has_mass = (m_nodes > cfg.mass_tol)[:, None]
@@ -749,7 +772,7 @@ def _upw_newmark_step_fused(p, grid, mats, mix, cfg, body_accel, pw_dirichlet_ma
     darcy_w = torch.where(act, k_perm * p.vol0 / abs(g), zero)
     nodes2, _, _ = ft.fused_scatter(grid, box, params, x_t, lam_f, act_t, tcl(darcy_w),
                                     solve=False, gnorm=True)
-    darcy_diag = nodes2[:, 1]
+    darcy_diag = xadd(nodes2)[:, 1]
 
     free_u, dU_dirichlet, free_t, dth_dirichlet = _dirichlet_dofs(
         grid, has_mass, theta_n_nodes, pw_dirichlet_mask, pw_dirichlet_value, p.x)
@@ -762,17 +785,19 @@ def _upw_newmark_step_fused(p, grid, mats, mix, cfg, body_accel, pw_dirichlet_ma
     vel_const_nodes = (nm.alpha_5 - 1.0) * Un_dt + nm.alpha_6 * Un_dt2
     gc0, grad_vel_const = ft.fused_gather(
         grid, box, params, x_t, lam_f, act_t,
-        gN=torch.cat([nm.alpha_2 * Un_dt + nm.alpha_3 * Un_dt2, theta_n_nodes[:, None]], dim=1),
-        g_grad=vel_const_nodes.contiguous())
+        gN=fill(torch.cat([nm.alpha_2 * Un_dt + nm.alpha_3 * Un_dt2, theta_n_nodes[:, None]],
+                          dim=1)).contiguous(),
+        g_grad=fill(vel_const_nodes).contiguous())
     const_a_p, th_n_p = gc0[:, :d], gc0[:, d]
     _, grad_th_const = ft.fused_gather(grid, box, params, x_t, lam_f, act_t,
-                                       g_grad=_pack_scalar(theta_n_nodes, d))
+                                       g_grad=fill(_pack_scalar(theta_n_nodes, d)).contiguous())
     grad_th_const = grad_th_const[:, 0, :]
 
     # --- the linear transfers of a residual at the frozen λ ---
     geo = (grid, box, params, x_t, lam_f, act_t, 0)
 
     def g_all(zm):
+        zm = fill(zm)
         outN, grad_du = ft.GatherNGrad.apply(zm, geo)
         grad_dth = ft.GatherGrad.apply(_pack_scalar(zm[:, d], d), geo)[:, 0, :]
         return outN, grad_du, grad_dth
@@ -784,6 +809,9 @@ def _upw_newmark_step_fused(p, grid, mats, mix, cfg, body_accel, pw_dirichlet_ma
                                                            dtype=u_vec.dtype,
                                                            device=u_vec.device)], dim=1)
         n2 = ft.ScatterG.apply(G_flow, geo)
+        # one halo add for both scatters
+        both = xadd(torch.cat([n1, n2], dim=1))
+        n1, n2 = both[:, :n1.shape[1]], both[:, n1.shape[1]:]
         return n1[:, 0], n1[:, 1:1 + d], n2[:, 1]
 
     def local_state(zm):
@@ -845,13 +873,15 @@ def _upw_newmark_step_fused(p, grid, mats, mix, cfg, body_accel, pw_dirichlet_ma
     a_blend = cfg.alpha_blend
     gout, _ = ft.fused_gather(
         grid, box, params, x_t, lam_f, act_t,
-        gN=torch.cat([dU, dU_dt + (1.0 - a_blend) * Un_dt, dU_dt2], dim=1))
+        gN=fill(torch.cat([dU, dU_dt + (1.0 - a_blend) * Un_dt, dU_dt2], dim=1)).contiguous())
     p_out = _advance(
         p, act, cs, (F_n1, dFdt_n1, J_n1, dJdt_n1), fluid, gout[:, :d],
         a_blend * p.v + gout[:, d:2 * d], p.a + gout[:, 2 * d:3 * d], theta_n1_p, dth_dt_p,
         ft.from_channel_leading(lam_f))
-    p_out, lost = windowed.local_rebin(p_out, grid, box)
-    return p_out, _implicit_diag(res, nnz, lost)
+    lost = torch.zeros((), dtype=torch.int32, device=p.x.device)
+    if cfg.rebin_mode == "local":
+        p_out, lost = windowed.local_rebin(p_out, grid, box)
+    return p_out, _implicit_diag(res, nnz, lost, cfg)
 
 
 def run(p, grid, mats, mix, cfg, n_steps, body_accel=None, pw_dirichlet_mask=None,

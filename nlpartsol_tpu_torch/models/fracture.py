@@ -211,11 +211,17 @@ def eigensoftening(
     return DamageOut(damage=damage_n1, strain_f=strain_f_n1)
 
 
-def damage_update(p, grid, box, damage, mats, act, cs, J_n1, F_n1, reach):
+def damage_update(p, grid, box, damage, mats, act, cs, J_n1, F_n1, reach, halo=None):
     """The configured driver's (damage, strain_f) at n+1 from the slot-layout
     state ``p`` and the constitutive result ``cs`` (the JAX package's
-    ``explicit._damage_update`` without a halo)."""
+    ``explicit._damage_update``).  With ``halo`` (a rank's strip,
+    parallel/domain.py) the Beps sums run on slot arrays extended by
+    ``reach`` ghost cell planes a seam, filled from the neighbours, so a
+    neighbourhood across a seam is whole."""
     require_grid(grid, "the Beps sums of a fracture driver")
+    if halo is not None:
+        return _damage_update_halo(p, grid, box, damage, mats, act, cs, J_n1, F_n1, reach,
+                                   halo)
     mid = p.mat_id.long()
     if damage == "eigenerosion":
         return eigenerosion(
@@ -230,3 +236,37 @@ def damage_update(p, grid, box, damage, mats, act, cs, J_n1, F_n1, reach):
             heps=mats.heps[mid], wcrit=mats.wcrit[mid], Ceps=mats.Ceps[mid], reach=reach,
         )
     raise ValueError(f"unknown damage driver {damage}")
+
+
+def _damage_update_halo(p, grid, box, damage, mats, act, cs, J_n1, F_n1, reach, halo):
+    from ..parallel import domain
+
+    d = p.dim
+    n = act.shape[0]
+    mid = p.mat_id.long()
+    arrs = dict(
+        x=p.x, active=act.to(p.x.dtype), damage=p.damage, strain_f=p.strain_f,
+        vol0=p.vol0, mass=p.mass, W=cs.W, J=J_n1, stress=cs.tau.reshape(n, d * d),
+        stress_zz=cs.tau_zz, F=F_n1.reshape(n, d * d), Ceps=mats.Ceps[mid], Gf=mats.Gf[mid],
+        ft=mats.ft[mid], heps=mats.heps[mid], wcrit=mats.wcrit[mid],
+    )
+    ext, ext_box = domain.slot_plane_halo(arrs, halo, box, reach, grid.spacing)
+    ne = ext["x"].shape[0]
+    eact = ext["active"] > 0.5
+    if damage == "eigenerosion":
+        out = eigenerosion(
+            grid, ext_box, x=ext["x"], active=eact, damage_n=ext["damage"], W=ext["W"],
+            J_n1=ext["J"], vol0=ext["vol0"], stress=ext["stress"].reshape(ne, d, d),
+            stress_zz=ext["stress_zz"], Ceps=ext["Ceps"], Gf=ext["Gf"], reach=reach,
+        )
+    elif damage == "eigensoftening":
+        out = eigensoftening(
+            grid, ext_box, x=ext["x"], active=eact, damage_n=ext["damage"],
+            strain_f_n=ext["strain_f"], mass=ext["mass"], F_n1=ext["F"].reshape(ne, d, d),
+            stress=ext["stress"].reshape(ne, d, d), stress_zz=ext["stress_zz"], ft=ext["ft"],
+            heps=ext["heps"], wcrit=ext["wcrit"], Ceps=ext["Ceps"], reach=reach,
+        )
+    else:
+        raise ValueError(f"unknown damage driver {damage}")
+    return DamageOut(damage=domain.slot_plane_restrict(out.damage, halo, box, reach),
+                     strain_f=domain.slot_plane_restrict(out.strain_f, halo, box, reach))

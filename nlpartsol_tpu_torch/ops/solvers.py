@@ -13,9 +13,11 @@ on the device, and the iteration counts follow the JAX semantics exactly:
 the condition is checked before each body, with the same thresholds and
 guards.
 
-Not ported yet: ``axis_name`` (grid-partitioned vectors with global dot
-products) raises ``NotImplementedError`` (ROADMAP.md queue 1, item 15,
-'Multi-device').
+With ``axis_name`` (a ``parallel.collectives.Comm``) the vectors are
+grid-partitioned (a rank's halo strip: owned-complete, ghost-zero): every
+dot and norm is an all-reduce of the local ones (the JAX ``_make_vdot``), and
+every loop decision is taken from all-reduced scalars only, so every rank
+takes the same branch and the iteration counts are equal across ranks.
 """
 
 from __future__ import annotations
@@ -54,14 +56,6 @@ def jvp(fn: Callable[[Tensor], Tensor], x: Tensor, v: Tensor):
         return out.primal, torch.zeros_like(out.primal) if tangent is None else tangent
 
 
-def _check_axis(axis_name):
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (grid-partitioned solver vectors) is not ported yet: "
-            "ROADMAP.md queue 1, item 15, 'Multi-device'"
-        )
-
-
 class CGResult(NamedTuple):
     x: Tensor
     iters: int
@@ -70,6 +64,29 @@ class CGResult(NamedTuple):
 
 def _vdot(a: Tensor, b: Tensor) -> Tensor:
     return torch.sum(a * b)
+
+
+def _make_gsum(axis_name):
+    """Global sums of local partial sums over ``axis_name``'s group (one
+    all-reduce for all of them); the identity without a group."""
+    if axis_name is None:
+        return lambda *parts: parts if len(parts) > 1 else parts[0]
+    from ..parallel.collectives import all_sum
+
+    def gsum(*parts):
+        out = all_sum(list(parts), axis_name)
+        return tuple(out) if len(out) > 1 else out[0]
+
+    return gsum
+
+
+def _make_vdot(axis_name):
+    """Dot product, globally reduced over the group of grid-partitioned
+    vectors; ``None``: one process."""
+    if axis_name is None:
+        return _vdot
+    gsum = _make_gsum(axis_name)
+    return lambda a, b: gsum(torch.sum(a * b))
 
 
 def _safe(v: Tensor) -> Tensor:
@@ -115,7 +132,7 @@ def pcg(
 ) -> CGResult:
     """Preconditioned conjugate gradients on an SPD operator; relative
     tolerance on ‖r‖ (``tol`` may be a 0-dim device tensor)."""
-    _check_axis(axis_name)
+    _vdot = _make_vdot(axis_name)
     if M_inv is None:
         M_inv = lambda r: r  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
@@ -152,7 +169,7 @@ def bicgstab(
     axis_name: Optional[str] = None,
 ) -> CGResult:
     """Preconditioned BiCGStab for nonsymmetric operators."""
-    _check_axis(axis_name)
+    _vdot = _make_vdot(axis_name)
     if M_inv is None:
         M_inv = lambda r: r  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
@@ -198,7 +215,8 @@ def gmres(
     Every cycle runs all ``restart`` Arnoldi steps (breakdown columns are
     guarded, not cut short), as the JAX package's fixed-shape loop does;
     the iteration count is cycles × restart."""
-    _check_axis(axis_name)
+    _vdot = _make_vdot(axis_name)
+    gsum = _make_gsum(axis_name)
     if M_inv is None:
         M_inv = lambda r: r  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
@@ -209,7 +227,7 @@ def gmres(
 
     def cycle(x):
         r = (b - A(x)).reshape(n)
-        beta0 = torch.sqrt(torch.sum(r * r))
+        beta0 = torch.sqrt(gsum(torch.sum(r * r)))
         V = torch.zeros((m + 1, n), dtype=dt, device=dev)
         V[0] = r / _safe(beta0)
         H = torch.zeros((m + 1, m), dtype=dt, device=dev)
@@ -220,9 +238,9 @@ def gmres(
         for j in range(m):
             w = A(M_inv(V[j].reshape(shape))).reshape(n)
             # modified Gram-Schmidt against all m+1 rows (rows > j are zero)
-            h = torch.where(rows <= j, V @ w, torch.zeros((), dtype=dt, device=dev))
+            h = torch.where(rows <= j, gsum(V @ w), torch.zeros((), dtype=dt, device=dev))
             w = w - h @ V
-            h_next = torch.sqrt(torch.sum(w * w))
+            h_next = torch.sqrt(gsum(torch.sum(w * w)))
             V[j + 1] = w / _safe(h_next)
             col = h.clone()
             col[j + 1] = h_next
@@ -291,7 +309,11 @@ def newton_krylov(
     ``'fixed'``: every inner solve to ``cg_tol``.  Each iteration takes the
     best of the step lengths {1, ½, ¼, 1/16} and evaluates the residual there
     once more."""
-    _check_axis(axis_name)
+    if axis_name is not None and linear == "dense":
+        raise ValueError("linear='dense' materialises one process's operator: "
+                         "use a Krylov solver on grid-partitioned vectors")
+    _vdot = _make_vdot(axis_name)
+    gsum = _make_gsum(axis_name)
     r0 = residual(x0)
     r0_norm = torch.sqrt(_vdot(r0, r0))
     if threshold_mode == "rel":
@@ -314,20 +336,24 @@ def newton_krylov(
         if linear == "dense":
             res_lin = dense_lu(Jv, -r)
         elif linear == "bicgstab":
-            res_lin = bicgstab(Jv, -r, M_inv=M_inv, tol=eta, maxiter=cg_maxiter)
+            res_lin = bicgstab(Jv, -r, M_inv=M_inv, tol=eta, maxiter=cg_maxiter,
+                               axis_name=axis_name)
         elif linear == "gmres":
-            res_lin = gmres(Jv, -r, M_inv=M_inv, tol=eta, max_cycles=max(1, cg_maxiter // 20))
+            res_lin = gmres(Jv, -r, M_inv=M_inv, tol=eta, max_cycles=max(1, cg_maxiter // 20),
+                            axis_name=axis_name)
         else:
-            res_lin = pcg(Jv, -r, M_inv=M_inv, tol=eta, maxiter=cg_maxiter)
+            res_lin = pcg(Jv, -r, M_inv=M_inv, tol=eta, maxiter=cg_maxiter,
+                          axis_name=axis_name)
         dx = res_lin.x
 
         # backtracking line search over a fixed candidate set: the step with
         # the smallest residual, picked on the device
-        norms = []
+        sq = []
         for a in alpha_list:
             r_a = residual(x + a * dx)
-            norms.append(torch.sqrt(_vdot(r_a, r_a)))
-        norms = torch.stack(norms)
+            sq.append(torch.sum(r_a * r_a))
+        # the four candidates' squared norms in one global sum
+        norms = torch.sqrt(torch.stack(list(gsum(*sq))))
         k = torch.argmin(norms)
         x_new = x + alphas[k] * dx
         r_new = residual(x_new)

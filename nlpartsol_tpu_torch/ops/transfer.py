@@ -14,6 +14,11 @@ express every transfer through it:
   p2g(vals)         (Np,K[,c]) per-edge values → (n_nodes[,c])
   g2p(weights, f)   Σ_k w·f[node_k]           → (Np[,c])
   edge_gather(f)    f[node_k] per edge        → (Np,K,c)  (for ΔF assembly)
+
+With ``axis_name`` (a :class:`~..parallel.collectives.Comm`) the particles
+are split over ranks and the grid replicated: every P2G is summed over the
+group.  :class:`HaloEngine` is the windowed engine on a rank's strip of a
+block-partitioned grid (parallel/domain.py).
 """
 
 from __future__ import annotations
@@ -29,13 +34,14 @@ class ScatterEngine:
     """On a Grid or a FEMesh (any background with ``n_nodes``).  The node
     ids are widened to int64 once here, not in every transfer."""
 
-    def __init__(self, grid, node_ids, mask):
+    def __init__(self, grid, node_ids, mask, axis_name=None):
         self.grid = grid
         self.ids = node_ids.long()
         self.mask = mask
+        self.axis_name = axis_name
 
     def p2g(self, vals):
-        return sparse.p2g(self.ids, self.mask, vals, self.grid.n_nodes)
+        return sparse.p2g(self.ids, self.mask, vals, self.grid.n_nodes, axis_name=self.axis_name)
 
     def g2p(self, weights, field):
         return sparse.g2p(self.ids, self.mask, weights, field)
@@ -47,18 +53,21 @@ class ScatterEngine:
 
 
 class WindowedEngine:
-    def __init__(self, grid: Grid, box: windowed.ActiveBox, offsets: np.ndarray, mask):
+    def __init__(self, grid: Grid, box: windowed.ActiveBox, offsets: np.ndarray, mask,
+                 axis_name=None):
         self.grid = grid
         self.box = box
         self.offsets = offsets
         self.mask = mask
+        self.axis_name = axis_name
 
     def _m(self, vals):
         m = self.mask if vals.ndim == 2 else self.mask[..., None]
         return torch.where(m, vals, torch.zeros_like(vals))
 
     def p2g(self, vals):
-        return windowed.p2g(self._m(vals), self.box, self.grid, self.offsets)
+        return windowed.p2g(self._m(vals), self.box, self.grid, self.offsets,
+                            axis_name=self.axis_name)
 
     def g2p(self, weights, field):
         return windowed.g2p(field, self._m(weights), self.box, self.grid, self.offsets)
@@ -73,3 +82,30 @@ class WindowedEngine:
         # (capacity-major slots: leading C axis)
         out = per_cell.reshape((1, nc, K, c)).expand(box.capacity, nc, K, c)
         return self._m(out.reshape(box.n_slots, K, c))
+
+
+class HaloEngine(WindowedEngine):
+    """The windowed engine on a rank's strip of a block-partitioned grid
+    (parallel/domain.py): P2G completes the owned planes by the
+    neighbours' halo adds, G2P and edge gathers fill the ghost planes first.
+    Every node vector it returns is owned-complete and ghost-zero, so a
+    global sum is an all-reduce of local ones."""
+
+    def __init__(self, grid: Grid, box, offsets, mask, halo):
+        super().__init__(grid, box, offsets, mask)
+        self.halo = halo
+
+    def p2g(self, vals):
+        from ..parallel import domain
+
+        return domain.halo_exchange_add(super().p2g(vals), self.halo)
+
+    def g2p(self, weights, field):
+        from ..parallel import domain
+
+        return super().g2p(weights, domain.halo_fill(field, self.halo))
+
+    def edge_gather(self, field):
+        from ..parallel import domain
+
+        return super().edge_gather(domain.halo_fill(field, self.halo))

@@ -330,8 +330,11 @@ def p2g(
     box: ActiveBox,
     grid: Grid,
     offsets: np.ndarray,  # (K, d) static window offsets
+    axis_name=None,
 ) -> Tensor:
-    """Windowed P2G: returns (n_nodes,) or (n_nodes, c) flat node array."""
+    """Windowed P2G: returns (n_nodes,) or (n_nodes, c) flat node array,
+    summed over ``axis_name``'s group (a ``parallel.collectives.Comm``:
+    particles split over ranks, the grid replicated) when given."""
     scalar = vals.ndim == 2
     if scalar:
         vals = vals[..., None]
@@ -346,6 +349,10 @@ def p2g(
         cs, ns = sl
         out[ns] += per_cell[cs + (k,)]
     out = out.reshape(grid.n_nodes, c)
+    if axis_name is not None:
+        from ..parallel.collectives import all_sum
+
+        out = all_sum([out], axis_name)[0]
     if scalar:
         out = out[:, 0]
     return out

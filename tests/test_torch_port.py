@@ -62,8 +62,7 @@ def test_config_from_fields_maps_the_jax_config():
     assert cfg_t == tex.ExplicitConfig(dt=1e-4, lme_params=lt, active_box=tb, transfer="fused",
                                        rebin_every=4, fbar=True)
     assert convert.config_from_fields({**static, "beps_reach": 2}).beps_reach == 2
-    with pytest.raises(NotImplementedError, match="prebinned"):
-        convert.config_from_fields({**static, "prebinned": True})
+    assert convert.config_from_fields({**static, "prebinned": True}).prebinned
     with pytest.raises(ValueError, match="unknown field"):
         convert.config_from_fields({**static, "bogus": 1})
 

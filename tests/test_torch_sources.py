@@ -1,5 +1,6 @@
 """The port's sources, read and not run: no import of JAX or of the JAX
-package anywhere in nlpartsol_tpu_torch/ or chip_smoke.py, no
+package anywhere in nlpartsol_tpu_torch/, chip_smoke.py or the sharded
+tests' rank program (tests/_torch_domain_worker.py), no
 torch.compile standing in for a kernel, the CUDA sources present, and no
 port test file larger than 8 tests."""
 
@@ -15,13 +16,15 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "nlpartsol_tpu_torch"
 FORBIDDEN = ("jax", "flax", "nlpartsol_tpu")
-# one case per part of the port; the package's own modules, with its io and
-# utils subpackages (the entry points' layer), under "package" (a case each
-# would take this file past the 8 tests a port test file may hold)
+# one case per part of the port; the package's own modules, with its io,
+# utils and parallel subpackages (the entry points' and the ranks' layer),
+# under "package", and the programs that drive the port without JAX (the
+# smoke script, the sharded tests' rank program) under "chip_smoke" (a case
+# each would take this file past the 8 tests a port test file may hold)
 PARTS = {
-    "chip_smoke": [ROOT / "chip_smoke.py"],
+    "chip_smoke": [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_domain_worker.py"],
     "package": sorted(PACKAGE.glob("*.py"))
-    + [p for sub in ("io", "utils") for p in sorted((PACKAGE / sub).rglob("*.py"))],
+    + [p for sub in ("io", "utils", "parallel") for p in sorted((PACKAGE / sub).rglob("*.py"))],
     **{sub: sorted((PACKAGE / sub).rglob("*.py"))
        for sub in ("formulations", "models", "ops", "shapefun")},
 }
@@ -52,7 +55,8 @@ def test_port_sources_import_no_jax(part):
 
 def test_every_port_source_is_scanned_and_none_uses_torch_compile():
     scanned = [p for paths in PARTS.values() for p in paths]
-    assert set(scanned) == set(PACKAGE.rglob("*.py")) | {ROOT / "chip_smoke.py"}
+    assert set(scanned) == set(PACKAGE.rglob("*.py")) | {
+        ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_domain_worker.py"}
     assert len(scanned) >= 18
     for path in scanned:
         assert "torch.compile" not in path.read_text(), path

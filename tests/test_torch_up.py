@@ -198,27 +198,26 @@ def test_fused_jv_matches_central_difference_float64(monkeypatch):
 
 
 def test_new_steps_refuse_what_waits():
-    """What the u-p and DEM steps do not hold yet raises NotImplementedError
-    naming its ROADMAP.md item (the converters refuse a set `prebinned`); the
-    fused engine's refusals stay ValueError."""
+    """What the u-p and DEM steps do not hold raises NotImplementedError
+    naming its ROADMAP.md queue (the converters carry `prebinned` across);
+    the fused engine's refusals stay ValueError."""
     _, (tg, tb, tp, lt) = _small_problem()
     mt = tM.material_table([tM.material(kind="Neo-Hookean-Wriggers", E=1e6, nu=0.3)],
                            device="cpu")
     for cls, step in ((tup.UpConfig, tup.up_step), (tdem.DEMConfig, tdem.dem_step)):
         cfg = cls(dt=1e-4, lme_params=lt, active_box=tb, transfer="fused")
-        for change, match in [(dict(axis_name="p"), "item 15"),
-                              (dict(rebin_mode="none"), "item 15"),
-                              (dict(transfer="binned"), "queue 2")]:
+        # axis_name and rebin_mode='none' run now (tests/test_torch_not_ported.py::
+        # test_sharding_options_run[up,dem])
+        for change, match in [(dict(transfer="binned"), "queue 2")]:
             with pytest.raises(NotImplementedError, match=match):
                 step(tp, tg, mt, cfg.replace(**change), torch.zeros(2))
         for shapefun in ("fem", "gimp", "alme"):
             with pytest.raises(ValueError):
                 step(tp, tg, mt, cfg.replace(shapefun=shapefun), torch.zeros(2))
-    # the JAX configs' `prebinned` is not a port option: only its default converts
+    # the JAX configs' `prebinned` converts (the sharded drivers' pre-binned slots)
     for conv in (convert.up_config_from_fields, convert.dem_config_from_fields):
         assert conv({"dt": 1e-4, "prebinned": False}).transfer == "scatter"
-        with pytest.raises(NotImplementedError, match="prebinned"):
-            conv({"dt": 1e-4, "prebinned": True})
+        assert conv({"dt": 1e-4, "prebinned": True}).prebinned
     with pytest.raises(ValueError, match="discrete-gradient"):
         tdem.dem_step(tp, tg, mt, tdem.DEMConfig(dt=1e-4, lme_params=lt, active_box=tb,
                                                  transfer="fused",

@@ -154,8 +154,9 @@ def test_options_that_wait_raise():
     tg, tp, tm, tmix, h, H, box = port_column()
     body = torch.as_tensor(BODY)
     base = tupw.UpwConfig(dt=1e-6, active_box=box)
-    waiting = [("item 15", dict(axis_name="p")), ("item 15", dict(halo=object())),
-               ("item 15", dict(rebin_mode="none")), ("queue 2", dict(transfer="binned"))]
+    # sharding (item 15) runs now: tests/test_torch_not_ported.py::
+    # test_sharding_options_run[upw]
+    waiting = [("queue 2", dict(transfer="binned"))]
     for item, kw in waiting:
         with pytest.raises(NotImplementedError, match=item):
             tupw.upw_step(tp, tg, tm, tmix, base.replace(**kw), body)
@@ -168,5 +169,4 @@ def test_options_that_wait_raise():
                           body)
     with pytest.raises(ValueError, match="active_box"):
         tupw.upw_step(tp, tg, tm, tmix, base.replace(active_box=None), body)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        convert.upw_config_from_fields(dict(dt=1e-6, prebinned=True))
+    assert convert.upw_config_from_fields(dict(dt=1e-6, prebinned=True)).prebinned
